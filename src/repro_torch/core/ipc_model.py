@@ -1,0 +1,31 @@
+"""Analytic core model used by the simulator (a numpy copy of
+``repro.core.ipc_model``).
+
+cycles = sum(gap_i) + sum(stall_i),  stall_i = demand_latency_i / MLP
+instr  = sum(gap_i) * IPC_base
+IPC    = instr / cycles
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def ipc(instr: np.ndarray, cycles: np.ndarray) -> np.ndarray:
+    return instr / np.maximum(cycles, 1.0)
+
+
+def ipc_gain(ipc_config: np.ndarray, ipc_baseline: np.ndarray) -> np.ndarray:
+    """Paper §V-A def. 5 (higher is better)."""
+    return ipc_config / np.maximum(ipc_baseline, 1e-9)
+
+
+def relative_fam_latency(lat_config: np.ndarray, lat_baseline: np.ndarray
+                         ) -> np.ndarray:
+    """Paper §V-A def. 6 (lower is better)."""
+    return lat_config / np.maximum(lat_baseline, 1e-9)
+
+
+def geomean(x) -> float:
+    """Geometric mean of metric values already on the host."""
+    x = np.asarray(x, np.float64)
+    return float(np.exp(np.mean(np.log(np.maximum(x, 1e-12)))))
