@@ -1,34 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # the checks below, 3.5-6 min on an H100
+    python3 chip_smoke.py            # the checks below, about 10 min on an H100
     python3 chip_smoke.py --profile  # also a torch.profiler window of the grid
 
-Phases (each prints its seconds; any failed check raises, exit code != 0):
+Phases, in this order (each prints its seconds; any failed check raises,
+exit code != 0):
 
-1. the card's name and power limit; build the CUDA kernel from
-   ``src/repro_torch/kernels/famsim_step/csrc`` (nvcc, sm_90a);
-2. kernel vs plain version on the card: random op streams over padded
-   geometries (effective sets/ways below the padding, ways above 32 too)
-   and a populated fig08-sized state (72 lanes, 16384 x 16), LRU and SRRIP,
-   exact equality of tags, lru, stamp, hit and probe hits; times per launch
-   and per plain step and the byte bound;
-3. the main path: the fig08 quick grid (6 block sizes x 6 workloads x
-   {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
+1. the card's name and power limit; build the four CUDA kernels from
+   ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
+   sm_90a);
+2. ``fused_cache_step`` vs its plain version on the card: random op streams
+   over padded geometries (effective sets/ways below the padding, ways
+   above 32 too) and a populated fig08-sized state (72 lanes, 16384 x 16),
+   LRU and SRRIP, exact equality of tags, lru, stamp, hit and probe hits;
+   times per launch and per plain step and the byte bound;
+3. ``cache_lookup``, ``block_gather`` and ``paged_attention`` vs their plain
+   versions on the card: lookups exact on random tags and a populated
+   32 x 16 state (K 1..260), gathers exact in bf16 at the 3 MB expert-slab
+   width and in f32 at the 64 KB KV-block width, attention within
+   PAGED_TOL at Hq 32, Hkv 8, D 64, T 16, NB 256 on strided views of the
+   fast tier with lengths that end mid-block; device time per launch, the
+   plain version's time, the bound and the library call's time;
+4. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
+   blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
+   2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
+   4,000 and 3,000 tokens, 4 decode steps; every output within 3e-4 of
+   dense attention over the raw K/V; one ``cache_lookup`` and one
+   ``paged_attention`` launch per decode step; hit rate, prefetches, wall
+   per decode step, decode tokens/s; a profiled decode step (device busy
+   share, kernels per step);
+5. expert tiering at granite-moe-1b-a400m (24 layers x 32 experts, top-8,
+   3 MB bf16 slabs, 192 fast slabs in 12 sets x 16 ways): 96 gathers from a
+   seeded skewed router, every slab exact; one ``cache_lookup`` and one
+   ``block_gather`` launch per gather; hit rate, gathers/s, GB/s;
+6. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
+   x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
    padded to 16384 x 16) through ``repro_torch.core.famsim.sweep`` with the
    kernel launched once per event; per-block-size ipc_gain /
    rel_fam_latency geomeans and simulated events/s/device;
-4. the same grid at T = 2,000 with ``kernel_backend="cuda"`` and
+7. the same grid at T = 2,000 with ``kernel_backend="cuda"`` and
    ``"torch"``: every metric bit-identical; the golden configuration
    against ``src/repro_torch/testdata/famsim_golden.json``.
 
-The last two lines of standard output are the kernel table (JSON) and
-``{"ok": true, "device": {...}}``; the card's name and power limit come
-earlier. Without a CUDA device it exits non-zero before printing results.
+Each path runs with every launch count set to 0 just before it and read
+just after. The last two lines of standard output are the kernel table
+(JSON) and ``{"ok": true, "device": {...}}``; the card's name and power
+limit come earlier. Without a CUDA device it exits non-zero before
+printing results. Bulk data (K/V, expert slabs) comes from a seeded
+generator on the card; queries and routing from numpy seeds.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -45,9 +70,30 @@ QUICK_WORKLOADS = ("603.bwaves_s", "628.pop2_s", "LU", "bfs", "canneal", "mg")
 T_MAIN = 12_000
 T_CHECK = 2_000
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published HBM3 rate
+F32_FLOPS = 67e12              # H100 SXM published float32 rate (no tensor cores)
 DEVICE = "cuda"
-KERNEL_SOURCE = "src/repro_torch/kernels/famsim_step/csrc/famsim_step.cu"
-KERNEL_REPLACES = "src/repro/kernels/famsim_step/kernel.py:138"
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "fused_cache_step": ("src/repro_torch/kernels/famsim_step/csrc/famsim_step.cu",
+                         "src/repro/kernels/famsim_step/kernel.py:138"),
+    "cache_lookup": ("src/repro_torch/kernels/cache_lookup/csrc/cache_lookup.cu",
+                     "src/repro/kernels/cache_lookup/kernel.py:40"),
+    "block_gather": ("src/repro_torch/kernels/block_gather/csrc/block_gather.cu",
+                     "src/repro/kernels/block_gather/kernel.py:24"),
+    "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:74"),
+}
+# tiered-KV decode at granite-3-2b's attention (src/repro/configs/granite_3_2b.py)
+KV_HQ, KV_HKV, KV_D, KV_LAYERS = 32, 8, 64, 40
+KV_CONTEXT, KV_BLOCK, KV_FAST, KV_WAYS = 4096, 16, 512, 16   # ways: FamConfig()'s
+KV_PROMPTS = (4000, 3000)
+KV_STEPS = 4
+KV_TOL = 3e-4                  # tests/test_tiering.py:76, tiered vs dense attention
+PAGED_TOL = 2e-5               # tests/test_kernels.py:67, online vs one-pass softmax (f32)
+PAGED_TOL_BF16 = 3e-2          # tests/test_kernels.py:67, bf16
+# expert tiering at granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py)
+MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K = 24, 32, 8
+MOE_SLAB = 3 * 1024 * 512      # w_gate + w_up + w_down of one expert, bf16
+MOE_FAST, MOE_TOKENS = 192, 4
 
 
 def check(ok, msg):
@@ -225,7 +271,7 @@ def kernel_vs_plain(torch, gen):
             # the timed launches repeat these inputs, so after the first one
             # every launch sees a state like k's now: the bound is taken there
             nbytes = _cache_step_bytes(torch, k, args, ns, ew, policy)
-            timing = dict(ms=_device_ms(torch, launch, 100), call_ms=call_ms,
+            timing = dict(ms=_device_ms(torch, launch, 100, "cache_step_kernel"), call_ms=call_ms,
                           plain_ms=plain_ms, bytes=nbytes,
                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     print(f"fused_cache_step @ 72 lanes x 16384 x 16, C={C}, P={P}, lru: "
@@ -236,9 +282,11 @@ def kernel_vs_plain(torch, gen):
     return max_err, timing
 
 
-def _device_ms(torch, fn, n):
-    """Mean device time of the cache-step kernel over n calls, from
-    torch.profiler's kernel events (the wrapper's host work excluded)."""
+def _device_ms(torch, fn, n, kernel=None):
+    """Mean device time per call over n calls, from torch.profiler's
+    kernel events (the host's work excluded): of the kernel whose name
+    contains ``kernel`` (each call must launch it once), or of every kernel
+    the call launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -247,10 +295,12 @@ def _device_ms(torch, fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "cache_step_kernel" in e.name]
-    check(len(us) == n, f"profiler saw {len(us)} of {n} kernel launches")
-    return float(np.mean(us)) / 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if kernel is not None:
+        events = [e for e in events if kernel in e.name]
+        check(len(events) == n, f"profiler saw {len(events)} of {n} {kernel} launches")
+    check(events, "profiler saw no kernel")
+    return sum(e.time_range.elapsed_us() for e in events) / n / 1e3
 
 
 def _time(torch, fn, n):
@@ -270,7 +320,343 @@ def _time(torch, fn, n):
 
 
 # --------------------------------------------------------------------------
-# phases 3-4: the main path
+# launch counts
+# --------------------------------------------------------------------------
+
+def _wrappers():
+    from repro_torch.kernels.block_gather import block_gather
+    from repro_torch.kernels.cache_lookup import cache_lookup
+    from repro_torch.kernels.famsim_step import fused_cache_step
+    from repro_torch.kernels.paged_attention import paged_attention
+    return {"fused_cache_step": fused_cache_step, "cache_lookup": cache_lookup,
+            "block_gather": block_gather, "paged_attention": paged_attention}
+
+
+def reset_counts():
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
+
+
+def counts():
+    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
+
+
+def build_all():
+    from repro_torch.kernels.nvcc import build_all as nvcc_build_all
+    return nvcc_build_all([ROOT / src for src, _ in KERNELS.values()])
+
+
+# --------------------------------------------------------------------------
+# phase 3: the tiering kernels vs their plain versions
+# --------------------------------------------------------------------------
+
+def _bound(nbytes, flops=0.0):
+    """(bound ms, what bounds it): bytes over the HBM rate vs float32
+    operations over the card's float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lookup_vs_plain(torch, gen):
+    """cache_lookup: exact on random tags and on a populated 32 x 16 state
+    (the decode's geometry), K from 1 to 260; timed at K = 256."""
+    from repro_torch.kernels.cache_lookup import (cache_lookup, cache_lookup_ref,
+                                                  set_index_ref)
+    dev = torch.device(DEVICE)
+    states = [torch.randint(0, 200, shape, generator=gen).to(dev, torch.int32)
+              for shape in ((8, 4), (64, 16), (32, 40))]
+    sets, ways = KV_FAST // KV_WAYS, KV_WAYS
+    tags = torch.zeros((1, sets, ways), dtype=torch.int32, device=dev)
+    _populate(torch, tags, torch.zeros_like(tags), [sets], [ways], "lru", gen)
+    populated = tags[0].contiguous()
+    states.append(populated)
+
+    def queries(t, K):
+        present = t[t > 0] - 1
+        pick = present[torch.randint(0, present.numel(), (K,), generator=gen).to(dev)]
+        fresh = torch.randint(-8, 1 << 20, (K,), generator=gen).to(dev, torch.int32)
+        use = (torch.rand(K, generator=gen) < 0.5).to(dev)
+        return torch.where(use, pick, fresh).to(torch.int32)
+
+    max_err = 0
+    for t in states:
+        for K in (1, 7, 33, 256, 260):
+            qs = queries(t, K)
+            got, want = cache_lookup(t, qs), cache_lookup_ref(t, qs)
+            torch.cuda.synchronize()
+            err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+            check(err == 0, f"cache_lookup != plain at {tuple(t.shape)}, K={K}")
+            max_err = max(max_err, err)
+    qsets = [queries(populated, 256) for _ in range(8)]
+    q = itertools.cycle(qsets).__next__
+    rows = np.mean([torch.unique(set_index_ref(x, sets)).numel() for x in qsets])
+    nbytes = 256 * 4 + rows * ways * 4 + 256 * (1 + 4 + 4)
+    bound_ms, bound_by = _bound(nbytes)
+    return dict(max_abs_err=max_err,
+                ms=_device_ms(torch, lambda: cache_lookup(populated, q()), 200,
+                              "cache_lookup_kernel"),
+                plain_ms=_time(torch, lambda: cache_lookup_ref(populated, q()), 50),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=f"tags {sets}x{ways}, K=256", bytes=nbytes)
+
+
+def gather_vs_plain(torch, gen):
+    """block_gather: exact in bf16 at the 3 MB slab width (K = 8), in f32 at
+    the 64 KB KV-block width (K = 256) and on an odd row width (the byte
+    path); timed on the expert fast tier, cycling over slab sets that do
+    not fit in L2, beside torch.index_select."""
+    from repro_torch.kernels.block_gather import block_gather, block_gather_ref
+    dev = torch.device(DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(1)
+    slabs = torch.randn((MOE_FAST, MOE_SLAB), generator=cgen, device=dev,
+                        dtype=torch.bfloat16)
+    kv = torch.randn((KV_FAST, 2 * KV_BLOCK * KV_HKV * KV_D), generator=cgen, device=dev)
+    odd = torch.randn((50, 1001), generator=cgen, device=dev, dtype=torch.bfloat16)
+    max_err = 0.0
+    for pool, K in ((slabs, 8), (kv, 256), (odd, 13)):
+        idx = torch.randint(0, pool.shape[0], (K,), generator=gen).to(dev, torch.int32)
+        got, want = block_gather(pool, idx), block_gather_ref(pool, idx)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"block_gather != plain at {tuple(pool.shape)} {pool.dtype}")
+        max_err = max(max_err, err)
+    idx_sets = [torch.randperm(MOE_FAST, generator=gen)[:MOE_TOP_K].to(dev, torch.int32)
+                for _ in range(8)]
+    nxt = itertools.cycle(idx_sets).__next__
+    nbytes = 2 * MOE_TOP_K * MOE_SLAB * 2 + MOE_TOP_K * 4
+    bound_ms, bound_by = _bound(nbytes)
+    return dict(max_abs_err=max_err,
+                ms=_device_ms(torch, lambda: block_gather(slabs, nxt()), 64,
+                              "block_gather_kernel"),
+                plain_ms=_time(torch, lambda: block_gather_ref(slabs, nxt()), 32),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=_device_ms(torch, lambda: torch.index_select(slabs, 0, nxt()), 64),
+                shape=f"bf16 {MOE_FAST}x{MOE_SLAB}, K={MOE_TOP_K}", bytes=nbytes)
+
+
+def _fast_pool(torch, cgen, dtype):
+    """A tiered-KV fast tier and its K and V halves as strided views."""
+    fast = torch.randn((KV_FAST, 2, KV_BLOCK, KV_HKV, KV_D), generator=cgen,
+                       device=DEVICE, dtype=dtype)
+    return fast, fast[:, 0], fast[:, 1]
+
+
+def attention_vs_plain(torch, gen):
+    """paged_attention: within PAGED_TOL (f32) and PAGED_TOL_BF16 (bf16) at
+    the decode's widths on strided views, lengths mid-block; timed at one
+    decode step's shape, cycling over 4 fast tiers (128 MB, past L2)."""
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+    dev = torch.device(DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(2)
+    nb = KV_CONTEXT // KV_BLOCK
+    max_err = 0.0
+    for dtype, tol in ((torch.float32, PAGED_TOL), (torch.bfloat16, PAGED_TOL_BF16)):
+        _, k, v = _fast_pool(torch, cgen, dtype)
+        lengths = torch.tensor([4003, 3001, 17, KV_CONTEXT], dtype=torch.int32, device=dev)
+        table = torch.stack([torch.randperm(KV_FAST, generator=gen)[:nb]
+                             for _ in range(4)]).to(dev, torch.int32)
+        q = torch.randn((4, KV_HQ, KV_D), generator=cgen, device=dev, dtype=dtype)
+        got, want = paged_attention(q, k, v, table, lengths), paged_attention_ref(q, k, v, table, lengths)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"paged_attention != plain ({dtype}): max abs err {err}")
+        if dtype == torch.float32:
+            max_err = err
+    pools = [_fast_pool(torch, cgen, torch.float32) for _ in range(4)]
+    length = KV_PROMPTS[0] + 3
+    lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+    table = torch.randperm(KV_FAST, generator=gen)[:nb].to(dev, torch.int32)[None]
+    q = torch.randn((1, KV_HQ, KV_D), generator=cgen, device=dev)
+    nxt = itertools.cycle(pools).__next__
+
+    def call(fn):
+        _, k, v = nxt()
+        return fn(q, k, v, table, lengths)
+    live = -(-length // KV_BLOCK)
+    nbytes = (2 * KV_HQ * KV_D * 4 + length * KV_HKV * KV_D * 4 * 2 + live * 4 + 4)
+    bound_ms, bound_by = _bound(nbytes, 4.0 * KV_HQ * KV_D * length)
+    return dict(max_abs_err=max_err,
+                ms=_device_ms(torch, lambda: call(paged_attention), 100,
+                              "paged_attention_kernel"),
+                plain_ms=_time(torch, lambda: call(paged_attention_ref), 20),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=f"B=1, Hq {KV_HQ}, Hkv {KV_HKV}, D {KV_D}, T {KV_BLOCK}, "
+                      f"NB {nb}, length {length}, f32 strided views", bytes=nbytes)
+
+
+def tiering_kernels_vs_plain(torch, gen):
+    out = {"cache_lookup": lookup_vs_plain(torch, gen),
+           "block_gather": gather_vs_plain(torch, gen),
+           "paged_attention": attention_vs_plain(torch, gen)}
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        print(f"{name} @ {r['shape']}: kernel {r['ms'] * 1e3:.2f} us device time/launch, "
+              f"plain {r['plain_ms'] * 1e3:.1f} us/call, bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bytes']:.0f} B, {r['bound_by']}), library {lib}, "
+              f"max abs err {r['max_abs_err']}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 4: tiered-KV decode at granite-3-2b's attention
+# --------------------------------------------------------------------------
+
+def _dense_attention(torch, q, k, v):
+    """Plain GQA attention of one query token over raw K/V (S, Hkv, D)."""
+    G = q.shape[0] // k.shape[1]
+    qg = q.reshape(k.shape[1], G, -1)
+    s = torch.einsum("hgd,shd->hgs", qg, k) / np.sqrt(q.shape[-1])
+    return torch.einsum("hgs,shd->hgd", torch.softmax(s, -1), v).reshape(q.shape)
+
+
+def _profile_steps(torch, fn, steps):
+    """Wall per step, device busy seconds per step and device kernels per
+    step over a torch.profiler window of ``steps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    return wall / steps, busy / steps, len(kernels) / steps
+
+
+def tiered_kv_path(torch):
+    from repro_torch.configs.base import FamConfig
+    from repro_torch.serve.tiered_kv import TieredKV, TieredKVConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    tk = TieredKV(FamConfig(), TieredKVConfig(block_tokens=KV_BLOCK, fast_blocks=KV_FAST),
+                  max_blocks=KV_CONTEXT // KV_BLOCK, kv_heads=KV_HKV, head_dim=KV_D,
+                  device=DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    keys = [(r, l) for r in range(len(KV_PROMPTS)) for l in range(KV_LAYERS)]
+    raw, slow, st = {}, {}, {}
+    for key in keys:
+        raw[key] = [torch.randn((KV_CONTEXT, KV_HKV, KV_D), generator=cgen, device=dev)
+                    for _ in range(2)]
+        slow[key] = tk.pack(*raw[key])
+        st[key] = tk.init(slow[key])
+    qs = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (KV_STEPS, len(KV_PROMPTS), KV_LAYERS, KV_HQ, KV_D)).astype(np.float32)).to(dev)
+    outs, step_s = {}, []
+    reset_counts()
+    for step in range(KV_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r, l in keys:
+            st[r, l], outs[step, r, l] = tk.decode_step(
+                st[r, l], slow[r, l], qs[step, r, l], KV_PROMPTS[r] + step + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launched = counts()
+    n = KV_STEPS * len(keys)
+    for name in ("cache_lookup", "paged_attention"):
+        check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
+    check(launched["block_gather"] == 0 and launched["fused_cache_step"] == 0,
+          f"unexpected launches on the decode path: {launched}")
+    max_err = 0.0
+    for (step, r, l), out in outs.items():
+        length = KV_PROMPTS[r] + step + 1
+        k, v = raw[r, l]
+        want = _dense_attention(torch, qs[step, r, l], k[:length], v[:length])
+        check(out.shape == (KV_HQ, KV_D) and bool(torch.isfinite(out).all()), "decode output")
+        max_err = max(max_err, float((out - want).abs().max()))
+        check(torch.allclose(out, want, rtol=KV_TOL, atol=KV_TOL),
+              f"decode step {step}, request {r}, layer {l}: max abs err vs dense "
+              f"{float((out - want).abs().max())}")
+    hits = sum(float(s.hits) for s in st.values())
+    misses = sum(float(s.demand_misses) for s in st.values())
+    prefetches = sum(float(s.prefetches) for s in st.values())
+    wall = sum(step_s)
+    print(f"tiered-KV decode: {len(KV_PROMPTS)} requests x {KV_LAYERS} layers x "
+          f"{KV_STEPS} steps = {n} decode_step calls in {wall:.3f} s "
+          f"({wall / n * 1e3:.3f} ms per call; per step round "
+          f"{', '.join(f'{x:.3f}' for x in step_s)} s), "
+          f"{len(KV_PROMPTS) * KV_STEPS / wall:.3f} decode tokens/s over all "
+          f"{KV_LAYERS} layers; hit rate {hits / max(hits + misses, 1):.4f} "
+          f"({hits:.0f} hits, {misses:.0f} misses), {prefetches:.0f} prefetches; "
+          f"max abs err vs dense {max_err:.3g} (tol {KV_TOL})", flush=True)
+    key = keys[0]
+    state = {"st": st[key]}
+
+    def one(i):
+        state["st"], _ = tk.decode_step(state["st"], slow[key], qs[0, 0, 0],
+                                        KV_PROMPTS[0] + KV_STEPS + 1 + i)
+    # one call: the profiler's host cost grows with the ~50,000 kernels a call
+    per_step, busy, kernels = _profile_steps(torch, one, 1)
+    print(f"tiered-KV profile: 1 warm decode_step call, {per_step * 1e3:.3f} ms wall "
+          f"under the profiler, device busy {busy * 1e3:.3f} ms ({busy / per_step:.2%} "
+          f"of that wall, {busy / (wall / n):.2%} of the unprofiled mean), "
+          f"{kernels:.0f} device kernels", flush=True)
+    del raw, slow, st
+    torch.cuda.empty_cache()
+    return launched, max_err
+
+
+# --------------------------------------------------------------------------
+# phase 5: expert tiering at granite-moe-1b-a400m
+# --------------------------------------------------------------------------
+
+def expert_path(torch):
+    from repro_torch.configs.base import FamConfig
+    from repro_torch.serve.expert_tiering import ExpertTier
+    dev = torch.device(DEVICE)
+    tier = ExpertTier(FamConfig(), MOE_LAYERS, MOE_EXPERTS, MOE_SLAB, MOE_FAST,
+                      dtype=torch.bfloat16, device=DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(4)
+    slow = torch.randn((MOE_LAYERS * MOE_EXPERTS, MOE_SLAB), generator=cgen,
+                       device=dev, dtype=torch.bfloat16)
+    st = tier.init(slow)
+    # a skewed router: per layer a Zipf-like popularity over the experts in
+    # a seeded order, so the hot experts repeat across tokens
+    rng = np.random.default_rng(4)
+    pop = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** 1.2
+    pop /= pop.sum()
+    order = [rng.permutation(MOE_EXPERTS) for _ in range(MOE_LAYERS)]
+    routing = [[torch.from_numpy(order[l][rng.choice(MOE_EXPERTS, MOE_TOP_K, replace=False,
+                                                     p=pop)].astype(np.int32)).to(dev)
+                for l in range(MOE_LAYERS)] for _ in range(MOE_TOKENS)]
+    gathered = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tok in range(MOE_TOKENS):
+        for layer in range(MOE_LAYERS):
+            st, slabs = tier.gather_experts(st, slow, layer, routing[tok][layer])
+            gathered.append((layer, routing[tok][layer], slabs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    n = MOE_TOKENS * MOE_LAYERS
+    for name in ("cache_lookup", "block_gather"):
+        check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
+    check(launched["paged_attention"] == 0 and launched["fused_cache_step"] == 0,
+          f"unexpected launches on the expert path: {launched}")
+    for layer, experts, slabs in gathered:
+        ids = tier.slab_ids(layer, experts).to(torch.int64)
+        check(slabs.shape == (MOE_TOP_K, MOE_SLAB) and torch.equal(slabs, slow[ids]),
+              f"expert slabs of layer {layer} differ from the slow tier")
+    rate = float(tier.pool.hit_rate(st))
+    nbytes = n * MOE_TOP_K * MOE_SLAB * 2
+    print(f"expert tiering: {n} gathers of {MOE_TOP_K} x {MOE_SLAB * 2 / 2**20:.0f} MiB "
+          f"slabs in {wall:.3f} s = {n / wall:.2f} gathers/s, {nbytes / wall / 1e9:.3f} GB/s "
+          f"gathered; hit rate {rate:.4f}, {float(st.prefetches):.0f} prefetches; "
+          f"every slab exact", flush=True)
+    del slow, st, gathered
+    torch.cuda.empty_cache()
+    return launched
+
+
+# --------------------------------------------------------------------------
+# phases 6-7: the simulator's path
 # --------------------------------------------------------------------------
 
 def fig08_grid(T, kernel_backend):
@@ -325,11 +711,12 @@ def fig08_rows(out, keys):
 
 
 def main_path(torch):
-    from repro_torch.kernels.famsim_step import fused_cache_step
-    fused_cache_step.launches = 0
+    reset_counts()
     out, keys, seconds = run_grid(T_MAIN, "cuda")
-    launches = fused_cache_step.launches
+    launched = counts()
+    launches = launched.pop("fused_cache_step")
     check(launches == T_MAIN, f"kernel launched {launches} times, expected {T_MAIN}")
+    check(not any(launched.values()), f"unexpected launches on the fig08 path: {launched}")
     for k, v in out.items():
         check(v.shape == (len(keys), 1) and np.isfinite(v).all(), f"metric {k}")
     for row in fig08_rows(out, keys):
@@ -399,28 +786,35 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from repro_torch.kernels.famsim_step import build
-
     phases = Phases()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    lib, log = phases.run("build", build)
-    print(f"built {lib.name}\n{log.strip()}", flush=True)
+    for lib, log in phases.run("build", build_all):
+        print(f"built {lib.name}\n{log.strip()}", flush=True)
     gen = torch.Generator().manual_seed(0)
     max_err, timing = phases.run("kernel_vs_plain", kernel_vs_plain, torch, gen)
+    tiering = phases.run("tiering_kernels_vs_plain", tiering_kernels_vs_plain, torch, gen)
+    kv_launched, _ = phases.run("tiered_kv", tiered_kv_path, torch)
+    moe_launched = phases.run("expert_tiering", expert_path, torch)
     launches, _ = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
     if args.profile:
         phases.run("profile", profile_window, torch)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_cache_step", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": "bytes", "library_ms": None}]}))
+    rows = {"fused_cache_step": dict(
+        launches=launches, max_abs_err=max_err, ms=timing["ms"],
+        plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"], bound_by="bytes",
+        library_ms=None)}
+    for name, r in tiering.items():
+        rows[name] = dict(launches=kv_launched[name] + moe_launched[name],
+                          **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")})
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

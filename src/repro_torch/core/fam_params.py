@@ -134,17 +134,29 @@ def _state_types():
     from repro_torch.core.prefetch_queue import PrefetchQueue
     from repro_torch.core.spp import SppState
     from repro_torch.core.throttle import ThrottleState
+    from repro_torch.core.tiering import TierState
+    from repro_torch.core.wfq import WfqState
     return (FamParams, NodeState, CacheState, PrefetchQueue, SppState,
-            ThrottleState)
+            ThrottleState, TierState, WfqState)
+
+
+def _tensor(node, device) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor; bfloat16 arrays (numpy's
+    ``ml_dtypes.bfloat16``, which torch.from_numpy refuses) go through a
+    uint16 view of the same bits."""
+    arr = np.array(node)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def from_numpy(tree: Any, device="cuda"):
     """Carry a JAX-side tree across: ``FamParams`` or any state NamedTuple
     (``NodeState``, ``CacheState``, ``PrefetchQueue``, ``SppState``,
-    ``ThrottleState``), given as nested NamedTuples or dicts of numpy
-    arrays with the same field names, becomes the port's counterpart with
-    tensors on ``device``. A node whose field names match none of those
-    types (the ``policy`` dict) stays a dict."""
+    ``ThrottleState``, ``TierState``, ``WfqState``), given as nested
+    NamedTuples or dicts of numpy arrays with the same field names, becomes
+    the port's counterpart with tensors on ``device``. A node whose field
+    names match none of those types (the ``policy`` dict) stays a dict."""
     by_fields = {frozenset(t._fields): t for t in _state_types()}
 
     def rec(node):
@@ -158,6 +170,6 @@ def from_numpy(tree: Any, device="cuda"):
             conv = {k: rec(v) for k, v in items.items()}
             typ = by_fields.get(frozenset(conv))
             return conv if typ is None else typ(**conv)
-        return torch.as_tensor(np.array(node), device=device)
+        return _tensor(node, device)
 
     return rec(tree)

@@ -39,6 +39,7 @@ from repro_torch.core import prefetch_queue as pq
 from repro_torch.core.addresses import (PAGE_BITS, dyn_block_addr,
                                         dyn_blocks_per_page, dyn_split)
 from repro_torch.core.fam_params import FamParams, stack_params, tree_map
+from repro_torch.device import resolve_device
 from repro_torch.kernels.famsim_step import cache_step, fused_replacement_mode
 from repro_torch.policies import DEFAULT_POLICY_SET, PolicySet, SimFlags
 
@@ -51,14 +52,6 @@ FAM_PAGE_MULT = 0x61C88647
 
 def _resolve(policies: Optional[PolicySet]) -> PolicySet:
     return DEFAULT_POLICY_SET if policies is None else policies
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but no CUDA device is available; "
-                           "pass device='cpu' to run on the CPU")
-    return dev
 
 
 class NodeState(NamedTuple):
@@ -440,7 +433,7 @@ def build_sim(cfg: FamConfig, flags: SimFlags, num_nodes: int,
     """Returns run(addrs (N, T), gaps (N, T), warmup_frac=0.2) -> metrics
     dict of (N,) tensors: the one-system entry point, the same program as
     :func:`sweep` with S = 1."""
-    dev = _device(device)
+    dev = resolve_device(device)
     p = stack_params([FamParams.of(cfg, flags, policies, device=dev)])
 
     def run(addrs, gaps, warmup_frac: float = 0.2):
@@ -469,7 +462,7 @@ def sweep(cfg: FamConfig, params_batch: FamParams, flags: Optional[SimFlags],
 
     Returns the metrics dict with (S, N) tensors on ``device``.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     if flags is not None:
         params_batch = params_batch.with_flags(flags)
     params_batch = tree_map(lambda t: t.to(dev), params_batch)

@@ -112,13 +112,16 @@ def update(cfg: FamConfig, s: SppState, page, block, enable=True
 
 
 def predict(cfg: FamConfig, s: SppState, page, block, sig, degree: int,
-            bpp, threshold) -> Tuple[torch.Tensor, torch.Tensor]:
+            bpp=64, threshold=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Path-confidence lookahead from (page, block, sig), ``degree`` steps.
 
     Returns (block_addrs (*B, degree), valid (*B, degree)) — global block
     addrs; predictions stay within the page (``bpp`` blocks per page).
+    ``threshold`` defaults to ``cfg.spp_confidence_threshold``.
     """
     mask = _sig_mask(cfg)
+    if threshold is None:
+        threshold = cfg.spp_confidence_threshold
     bpp = torch.as_tensor(bpp, device=page.device)
     cur_sig, cur_block = sig, block
     conf = torch.ones(sig.shape, dtype=torch.float32, device=sig.device)

@@ -6,85 +6,25 @@ and runs the plain version (:func:`ref.cache_step_ref`) on CPU tensors.
 It replaces the TPU kernel ``fused_cache_step`` of
 ``repro.kernels.famsim_step.kernel``.
 
-The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/`` beside this file
-(named by a hash of the source), and bound with ``ctypes``.
+The source is built at first use by :mod:`repro_torch.kernels.nvcc`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
-
 import torch
 
 from repro_torch.core import dram_cache as dc
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.famsim_step.ref import cache_step_ref
 from repro_torch.policies.replacement import _SrripBound
 
 SOURCE = Path(__file__).with_name("csrc") / "famsim_step.cu"
-BUILD_DIR = Path(__file__).with_name("build")
 MODES = {"lru": 0, "srrip": 1}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernel needs the CUDA toolkit")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel if this source has not been built yet.
-
-    Returns (library path, compiler log; empty when already built)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfamsim_step_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        fn = lib.famsim_cache_step
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_entry = nvcc.CudaEntry(SOURCE, "famsim_cache_step",
+                        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+build = _entry.build
 
 
 def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
@@ -120,7 +60,7 @@ def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
             ("demand_enable", demand_enable, b8, lanes),
             ("probe_blocks", probe_blocks, i32, lanes + (P,)),
             ("num_sets", num_sets, i32, lanes), ("ways", ways, i32, lanes)):
-        _check(name, t, dtype, shape, dev)
+        nvcc.check_tensor(name, t, dtype, shape, dev)
 
     if dev.type == "cpu":
         policy = _SrripBound(max_rrpv) if mode == "srrip" else None
@@ -138,17 +78,14 @@ def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
     if n_lanes == 0:
         return hit, probe_hits
     s_pad, w_pad = tags.shape[-2:]
-    err = _library().famsim_cache_step(
-        tags.data_ptr(), lru.data_ptr(), stamp.data_ptr(),
-        fill_blocks.data_ptr(), fill_enable.data_ptr(),
-        demand_block.data_ptr(), demand_enable.data_ptr(),
-        probe_blocks.data_ptr(), num_sets.data_ptr(), ways.data_ptr(),
-        hit.data_ptr(), probe_hits.data_ptr(),
-        n_lanes, s_pad, w_pad, C, P, MODES[mode], int(max_rrpv),
-        torch.cuda.current_stream(dev).cuda_stream)
+    _entry(tags.data_ptr(), lru.data_ptr(), stamp.data_ptr(),
+           fill_blocks.data_ptr(), fill_enable.data_ptr(),
+           demand_block.data_ptr(), demand_enable.data_ptr(),
+           probe_blocks.data_ptr(), num_sets.data_ptr(), ways.data_ptr(),
+           hit.data_ptr(), probe_hits.data_ptr(),
+           n_lanes, s_pad, w_pad, C, P, MODES[mode], int(max_rrpv),
+           nvcc.stream(dev))
     fused_cache_step.launches += 1
-    if err != 0:
-        raise RuntimeError(f"famsim_cache_step launch failed: CUDA error {err}")
     return hit, probe_hits
 
 
