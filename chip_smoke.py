@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # the checks below, about 10 min on an H100
+    python3 chip_smoke.py            # the checks below, 5-10 min on an H100
     python3 chip_smoke.py --profile  # also a torch.profiler window of the grid
 
 Phases, in this order (each prints its seconds; any failed check raises,
 exit code != 0):
 
-1. the card's name and power limit; build the four CUDA kernels from
+1. the card's name and power limit; build the five CUDA kernels from
    ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
    sm_90a);
 2. ``fused_cache_step`` vs its plain version on the card: random op streams
@@ -22,7 +22,14 @@ exit code != 0):
    PAGED_TOL at Hq 32, Hkv 8, D 64, T 16, NB 256 on strided views of the
    fast tier with lengths that end mid-block; device time per launch, the
    plain version's time, the bound and the library call's time;
-4. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
+4. ``flash_attention`` vs its plain version on the card: the shapes of
+   ``tests/test_kernels.py`` and lengths that end mid-tile (Sq = Sk in
+   1, 1,000, 4,000 at D 64, 128, 256; Sq != Sk), f32 and bf16, causal and
+   not, within 2e-5 / 2e-2; the serving prefill's shape (B 4, Hq 32,
+   Hkv 8, D 64, S 4,000, bf16, causal) within FLASH_PATH_TOL; device time
+   per launch there, the plain version's time, the bound (bf16 tensor-core
+   rate) and ``scaled_dot_product_attention``'s time;
+5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
    4,000 and 3,000 tokens, 4 decode steps; every output within 3e-4 of
@@ -30,16 +37,26 @@ exit code != 0):
    ``paged_attention`` launch per decode step; hit rate, prefetches, wall
    per decode step, decode tokens/s; a profiled decode step (device busy
    share, kernels per step);
-5. expert tiering at granite-moe-1b-a400m (24 layers x 32 experts, top-8,
+6. expert tiering at granite-moe-1b-a400m (24 layers x 32 experts, top-8,
    3 MB bf16 slabs, 192 fast slabs in 12 sets x 16 ways): 96 gathers from a
    seeded skewed router, every slab exact; one ``cache_lookup`` and one
    ``block_gather`` launch per gather; hit rate, gathers/s, GB/s;
-6. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
+7. serving granite-3-2b at its published widths (40 layers, d_model
+   2048, Hq 32, Hkv 8, D 64, SwiGLU 8192, vocab 49155; f32 params, bf16
+   compute, random weights from a seed): ``Engine.generate`` on 4 prompts
+   of 4,000 random tokens with 16 new tokens, one ``flash_attention``
+   launch per layer of the prefill and none in decode; the same params
+   teacher-forced on the generated tokens under ``kernel_backend="cuda"``
+   and ``"torch"``, the prefill's logits and K/V cache and every decode
+   step's logits within SERVE_TOL; prefill and decode walls and tokens/s,
+   the kernel's share of a profiled prefill's device time, device kernels
+   per decode step, greedy agreement of the two backends;
+8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
    padded to 16384 x 16) through ``repro_torch.core.famsim.sweep`` with the
    kernel launched once per event; per-block-size ipc_gain /
    rel_fam_latency geomeans and simulated events/s/device;
-7. the same grid at T = 2,000 with ``kernel_backend="cuda"`` and
+9. the same grid at T = 2,000 with ``kernel_backend="cuda"`` and
    ``"torch"``: every metric bit-identical; the golden configuration
    against ``src/repro_torch/testdata/famsim_golden.json``.
 
@@ -81,6 +98,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                      "src/repro/kernels/block_gather/kernel.py:24"),
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:74"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:66"),
 }
 # tiered-KV decode at granite-3-2b's attention (src/repro/configs/granite_3_2b.py)
 KV_HQ, KV_HKV, KV_D, KV_LAYERS = 32, 8, 64, 40
@@ -94,6 +113,23 @@ PAGED_TOL_BF16 = 3e-2          # tests/test_kernels.py:67, bf16
 MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K = 24, 32, 8
 MOE_SLAB = 3 * 1024 * 512      # w_gate + w_up + w_down of one expert, bf16
 MOE_FAST, MOE_TOKENS = 192, 4
+# flash_attention vs plain: the shapes of tests/test_kernels.py:25-30 at its
+# tolerances (:41), lengths that end mid-tile and every head dim of the
+# dense configs; the path's shape comes from the serving configuration
+FLASH_SHAPES = ((2, 64, 4, 2, 32), (1, 128, 8, 1, 16), (2, 64, 4, 4, 64), (1, 256, 2, 2, 8))
+FLASH_LENGTHS = (1, 1000, 4000)
+FLASH_UNEQUAL = ((1000, 3000), (3000, 1000))
+FLASH_DIMS = (64, 128, 256)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# at the path's shape: bf16's 2e-2 as rtol (over 2 ulps), atol cut to 1e-3,
+# 1/40 of the typical |out| of 0.04 at S 4,000, so an error at the scale
+# of the outputs fails
+FLASH_PATH_TOL = {"rtol": 2e-2, "atol": 1e-3}
+BF16_FLOPS = 989e12            # H100 SXM published dense bf16 rate (tensor cores)
+# serving at granite-3-2b (src/repro/configs/granite_3_2b.py), full width
+SERVE_ARCH = "granite-3-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
+SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|, rtol 0.05
 
 
 def check(ok, msg):
@@ -327,9 +363,11 @@ def _wrappers():
     from repro_torch.kernels.block_gather import block_gather
     from repro_torch.kernels.cache_lookup import cache_lookup
     from repro_torch.kernels.famsim_step import fused_cache_step
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     return {"fused_cache_step": fused_cache_step, "cache_lookup": cache_lookup,
-            "block_gather": block_gather, "paged_attention": paged_attention}
+            "block_gather": block_gather, "paged_attention": paged_attention,
+            "flash_attention": flash_attention}
 
 
 def reset_counts():
@@ -350,10 +388,10 @@ def build_all():
 # phase 3: the tiering kernels vs their plain versions
 # --------------------------------------------------------------------------
 
-def _bound(nbytes, flops=0.0):
-    """(bound ms, what bounds it): bytes over the HBM rate vs float32
-    operations over the card's float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def _bound(nbytes, flops=0.0, flops_per_s=F32_FLOPS):
+    """(bound ms, what bounds it): bytes over the HBM rate vs operations
+    over the card's rate for their type (float32 unless told)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -500,7 +538,101 @@ def tiering_kernels_vs_plain(torch, gen):
 
 
 # --------------------------------------------------------------------------
-# phase 4: tiered-KV decode at granite-3-2b's attention
+# phase 4: flash_attention vs its plain version
+# --------------------------------------------------------------------------
+
+def _serving_attention_shape():
+    """(B, S, Hq, Hkv, D) of the serving path's prefill attention."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(SERVE_ARCH)
+    return SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+
+def _attention_flops(B, Sq, Sk, Hq, D, causal):
+    """Operations of q.k and p.v over the (query, key) pairs the inputs
+    need; under ``causal`` query i sees keys 0..i (top-left aligned)."""
+    if not causal:
+        pairs = Sq * Sk
+    elif Sq <= Sk:
+        pairs = Sq * (Sq + 1) // 2
+    else:
+        pairs = Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+    return 4.0 * B * Hq * D * pairs
+
+
+def flash_vs_plain(torch):
+    """flash_attention: within FLASH_TOL of the plain version on the shapes
+    of tests/test_kernels.py, on lengths that end mid-tile (Sq = Sk and
+    Sq != Sk) at every dense head dim, f32 and bf16, causal and not; then
+    the serving prefill's shape (bf16, causal) against the plain version
+    within FLASH_PATH_TOL, timed there beside the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    dev = torch.device(DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=cgen, device=dev, dtype=dtype)
+    cases = [(b, s, s, hq, hkv, d) for b, s, hq, hkv, d in FLASH_SHAPES]
+    cases += [(1, s, s, 8, 2, d) for s in FLASH_LENGTHS for d in FLASH_DIMS]
+    cases += [(1, sq, sk, 8, 2, 64) for sq, sk in FLASH_UNEQUAL]
+    errs, n = {}, 0
+    for b, sq, sk, hq, hkv, d in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            tol = FLASH_TOL[name]
+            q, k, v = rnd((b, sq, hq, d), dtype), rnd((b, sk, hkv, d), dtype), rnd((b, sk, hkv, d), dtype)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                check(got.shape == want.shape and got.dtype == dtype
+                      and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                      f"flash_attention != plain at B {b}, Sq {sq}, Sk {sk}, Hq {hq}, "
+                      f"Hkv {hkv}, D {d}, {name}, causal {causal}: max abs err {err}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                n += 1
+    B, S, Hq, Hkv, D = _serving_attention_shape()
+    q, k, v = (rnd((B, S, h, D), torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    got, want = flash_attention(q, k, v).float(), flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    path_err = float(diff.max())
+    path_used = float((diff / (FLASH_PATH_TOL["atol"] + FLASH_PATH_TOL["rtol"] * want.abs())).max())
+    check(torch.allclose(got, want, **FLASH_PATH_TOL),
+          f"flash_attention != plain at the serving prefill's shape: max abs err {path_err}, "
+          f"{path_used:.3g} of the allowance")
+    mean_abs = float(want.abs().mean())
+    del got, want, diff
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)     # q, out; k, v in bf16
+    flops = _attention_flops(B, S, S, Hq, D, True)
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = dict(max_abs_err=path_err,
+               ms=_device_ms(torch, lambda: flash_attention(q, k, v), 10, "flash_attention_kernel"),
+               plain_ms=_time(torch, lambda: flash_attention_ref(q, k, v), 3),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=_device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+               shape=f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal",
+               bytes=nbytes, flops=flops)
+    print(f"flash_attention: {n} cases within tolerance (max abs err f32 {errs['float32']:.3g}, "
+          f"bf16 {errs['bfloat16']:.3g}); at the serving prefill ({out['shape']}): "
+          f"max abs err vs plain {path_err:.3g} (mean |out| {mean_abs:.3g}; {path_used:.3g} of "
+          f"the allowance atol {FLASH_PATH_TOL['atol']} + rtol {FLASH_PATH_TOL['rtol']} |ref| "
+          f"used); kernel {out['ms']:.4f} ms device "
+          f"time/launch, plain {out['plain_ms']:.4f} ms/call, bound {bound_ms:.4f} ms "
+          f"({flops:.4g} operations at {BF16_FLOPS:.4g}/s, {nbytes} B; {bound_by}), library "
+          f"(scaled_dot_product_attention) {out['library_ms']:.4f} ms, "
+          f"{flops / out['ms'] / 1e9:.2f} TFLOP/s achieved", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: tiered-KV decode at granite-3-2b's attention
 # --------------------------------------------------------------------------
 
 def _dense_attention(torch, q, k, v):
@@ -511,9 +643,9 @@ def _dense_attention(torch, q, k, v):
     return torch.einsum("hgs,shd->hgd", torch.softmax(s, -1), v).reshape(q.shape)
 
 
-def _profile_steps(torch, fn, steps):
-    """Wall per step, device busy seconds per step and device kernels per
-    step over a torch.profiler window of ``steps`` calls."""
+def _kernel_events(torch, fn, steps=1):
+    """(wall seconds, device kernel events) of ``steps`` calls ``fn(i)``
+    under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -523,7 +655,13 @@ def _profile_steps(torch, fn, steps):
             fn(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _profile_steps(torch, fn, steps):
+    """Wall per step, device busy seconds per step and device kernels per
+    step over a torch.profiler window of ``steps`` calls."""
+    wall, kernels = _kernel_events(torch, fn, steps)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     return wall / steps, busy / steps, len(kernels) / steps
 
@@ -560,7 +698,7 @@ def tiered_kv_path(torch):
     n = KV_STEPS * len(keys)
     for name in ("cache_lookup", "paged_attention"):
         check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
-    check(launched["block_gather"] == 0 and launched["fused_cache_step"] == 0,
+    check(all(v == 0 for k, v in launched.items() if k not in ("cache_lookup", "paged_attention")),
           f"unexpected launches on the decode path: {launched}")
     max_err = 0.0
     for (step, r, l), out in outs.items():
@@ -602,7 +740,7 @@ def tiered_kv_path(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 5: expert tiering at granite-moe-1b-a400m
+# phase 6: expert tiering at granite-moe-1b-a400m
 # --------------------------------------------------------------------------
 
 def expert_path(torch):
@@ -638,7 +776,7 @@ def expert_path(torch):
     n = MOE_TOKENS * MOE_LAYERS
     for name in ("cache_lookup", "block_gather"):
         check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
-    check(launched["paged_attention"] == 0 and launched["fused_cache_step"] == 0,
+    check(all(v == 0 for k, v in launched.items() if k not in ("cache_lookup", "block_gather")),
           f"unexpected launches on the expert path: {launched}")
     for layer, experts, slabs in gathered:
         ids = tier.slab_ids(layer, experts).to(torch.int64)
@@ -656,7 +794,159 @@ def expert_path(torch):
 
 
 # --------------------------------------------------------------------------
-# phases 6-7: the simulator's path
+# phase 7: serving granite-3-2b at full width
+# --------------------------------------------------------------------------
+
+def _teacher_forced(torch, model, params, tokens, fed):
+    """Prefill ``tokens`` (B, S), its cache grown to S + N positions, then
+    N - 1 decode steps fed ``fed[:, t - 1]``, each synchronised and timed. The
+    logits (float32) of the prefill's last token and of every step, the
+    cache, the walls, and the launch counts after the prefill and at the
+    end (all set to 0 first)."""
+    from repro_torch.models import pad_cache
+    B, S = tokens.shape
+    N = fed.shape[1]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    at_prefill = counts()
+    cache = pad_cache(cache, S + N)
+    out, step_s = [logits.float()], []
+    for t in range(1, N):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, cache, {"tokens": fed[:, t - 1:t],
+                                                     "index": S + t - 1})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out.append(logits.float())
+    return dict(logits=out, cache=cache, prefill_s=prefill_s, step_s=step_s,
+                at_prefill=at_prefill, at_end=counts())
+
+
+def _within(torch, got, want, what):
+    """Check got against want at SERVE_TOL (atol SERVE_TOL x max|want|,
+    rtol SERVE_TOL). Returns (max abs err / max|want|, the largest share
+    of its allowance an element uses: |got - want| / (atol + rtol |want|),
+    at most 1 when the check passes)."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    err = float(diff.max())
+    used = float((diff / (SERVE_TOL * scale + SERVE_TOL * want.abs())).max())
+    check(torch.allclose(got, want, atol=SERVE_TOL * scale, rtol=SERVE_TOL),
+          f"{what}: max abs err {err} vs max|ref| {scale} (tol {SERVE_TOL})")
+    return err / max(scale, 1e-30), used
+
+
+def serving_path(torch):
+    """granite-3-2b at its published widths, random weights from a seed:
+    Engine.generate on SERVE_BATCH prompts of SERVE_PROMPT random tokens
+    with SERVE_NEW new tokens (the main path: one flash_attention launch
+    per layer of the prefill, none in decode); then the same model and
+    params teacher-forced on the generated tokens with the kernel backend
+    (timed per stage) and the torch backend, every logit and the prefill's
+    K/V cache within SERVE_TOL; one profiled prefill and decode step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg, device=DEVICE)
+    check(model.kernel_backend == "cuda", "the serving path runs the kernel backend")
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(), f"{n_params} params, config says {cfg.param_count()}")
+    prompts = torch.Generator().manual_seed(SERVE_SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=prompts).to(DEVICE)
+    engine = Engine(model, params, ServeConfig(max_new_tokens=SERVE_NEW, seed=SERVE_SEED))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen, stats = engine.generate({"tokens": tokens})
+    wall = time.perf_counter() - t0
+    launched = counts()
+    L = cfg.num_layers
+    check(launched["flash_attention"] == L,
+          f"flash_attention launched {launched['flash_attention']} times, expected {L}")
+    check(all(v == 0 for k, v in launched.items() if k != "flash_attention"),
+          f"unexpected launches on the serving path: {launched}")
+    check(gen.shape == (SERVE_BATCH, SERVE_NEW) and gen.dtype == np.int32
+          and gen.min() >= 0 and gen.max() < cfg.vocab_size, f"generated tokens {gen}")
+    check(stats == {"prefill_len": SERVE_PROMPT, "new_tokens": SERVE_NEW}, f"stats {stats}")
+    print(f"serving {cfg.name}: {n_params} params ({cfg.param_dtype}, {cfg.dtype} compute, "
+          f"random from seed {SERVE_SEED}, {init_s:.3f} s to draw); Engine.generate on "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} prompt tokens + {SERVE_NEW} new in {wall:.3f} s; "
+          f"flash_attention launches {launched['flash_attention']} ({L} layers, 1 prefill)",
+          flush=True)
+
+    fed = torch.from_numpy(gen).to(DEVICE)
+    kern = _teacher_forced(torch, model, params, tokens, fed)
+    check(kern["at_prefill"]["flash_attention"] == L and kern["at_end"]["flash_attention"] == L,
+          f"flash_attention launches after prefill / at the end: "
+          f"{kern['at_prefill']['flash_attention']} / {kern['at_end']['flash_attention']}, "
+          f"expected {L} / {L} (none in decode)")
+    ref = _teacher_forced(torch, build_model(cfg, device=DEVICE, kernel_backend="torch"),
+                          params, tokens, fed)
+    check(not any(ref["at_end"].values()), f"the torch backend launched {ref['at_end']}")
+    S = SERVE_PROMPT
+    rel = {"prefill logits": _within(torch, kern["logits"][0], ref["logits"][0],
+                                     "prefill last-token logits")}
+    for key in ("k", "v"):
+        rel[f"{key} cache"] = _within(torch, kern["cache"][key][:, :, :S],
+                                      ref["cache"][key][:, :, :S], f"prefill {key} cache")
+    dec = [_within(torch, kern["logits"][t], ref["logits"][t], f"decode step {t} logits")
+           for t in range(1, SERVE_NEW)]
+    rel["decode logits"] = (max(e for e, _ in dec), max(u for _, u in dec))
+    for lg in kern["logits"] + ref["logits"]:
+        check(lg.shape == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+              "logits finite, (B, vocab)")
+    ref_tokens = torch.stack([lg.argmax(-1) for lg in ref["logits"]], 1).cpu().numpy()
+    agree = float((ref_tokens == gen).mean())
+    same = float((torch.stack([lg.argmax(-1) for lg in kern["logits"]], 1).cpu().numpy()
+                  == gen).mean())
+    steps = kern["step_s"]
+    step = float(np.mean(steps))
+    print(f"serving prefill: {kern['prefill_s']:.4f} s wall, "
+          f"{SERVE_BATCH * S / kern['prefill_s']:.1f} prefill tokens/s (torch backend "
+          f"{ref['prefill_s']:.4f} s); decode: {step * 1e3:.3f} ms wall per step "
+          f"(min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f} over {len(steps)} steps), "
+          f"{SERVE_BATCH / step:.1f} decode tokens/s (torch backend "
+          f"{np.mean(ref['step_s']) * 1e3:.3f} ms per step)", flush=True)
+    print(f"serving vs torch backend (max abs err / max|ref|, share of the allowance "
+          f"atol + rtol |ref| used): " +
+          ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in rel.items()) +
+          f" (tol {SERVE_TOL}); greedy tokens agreeing with the torch backend "
+          f"{agree:.4f}, with the kernel backend's own teacher-forced argmax {same:.4f}",
+          flush=True)
+
+    p_wall, p_events = _kernel_events(torch, lambda i: model.prefill(params, {"tokens": tokens}))
+    busy = sum(e.time_range.elapsed_us() for e in p_events) / 1e3
+    fa = [e.time_range.elapsed_us() for e in p_events if "flash_attention_kernel" in e.name]
+    check(len(fa) == L, f"profiler saw {len(fa)} flash_attention launches in a prefill")
+    d_wall, d_events = _kernel_events(torch, lambda i: model.decode(
+        params, kern["cache"], {"tokens": fed[:, -1:], "index": S + SERVE_NEW - 1}))
+    d_busy = sum(e.time_range.elapsed_us() for e in d_events) / 1e3
+    print(f"serving profile: one prefill {p_wall * 1e3:.3f} ms wall under the profiler, "
+          f"device busy {busy:.3f} ms ({busy / 1e3 / p_wall:.2%} of that wall), "
+          f"{len(p_events)} device kernels, flash_attention_kernel {sum(fa) / 1e3:.3f} ms "
+          f"= {sum(fa) / 1e3 / busy:.2%} of the prefill's device time; one decode step "
+          f"{d_wall * 1e3:.3f} ms wall, device busy {d_busy:.3f} ms "
+          f"({d_busy / 1e3 / d_wall:.2%}), {len(d_events)} device kernels", flush=True)
+    del params, kern, ref
+    torch.cuda.empty_cache()
+    return launched
+
+
+# --------------------------------------------------------------------------
+# phases 8-9: the simulator's path
 # --------------------------------------------------------------------------
 
 def fig08_grid(T, kernel_backend):
@@ -796,8 +1086,10 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(0)
     max_err, timing = phases.run("kernel_vs_plain", kernel_vs_plain, torch, gen)
     tiering = phases.run("tiering_kernels_vs_plain", tiering_kernels_vs_plain, torch, gen)
+    flash = phases.run("flash_attention_vs_plain", flash_vs_plain, torch)
     kv_launched, _ = phases.run("tiered_kv", tiered_kv_path, torch)
     moe_launched = phases.run("expert_tiering", expert_path, torch)
+    serve_launched = phases.run("serving", serving_path, torch)
     launches, _ = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
     if args.profile:
@@ -812,6 +1104,9 @@ def main(argv=None):
         rows[name] = dict(launches=kv_launched[name] + moe_launched[name],
                           **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by", "library_ms")})
+    rows["flash_attention"] = dict(launches=serve_launched["flash_attention"],
+                                   **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "bound_by", "library_ms")})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **row} for name, row in rows.items()]}))

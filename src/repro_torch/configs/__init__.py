@@ -1,1 +1,11 @@
-from repro_torch.configs.base import KERNEL_BACKENDS, FamConfig, fam_replace  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    KERNEL_BACKENDS,
+    FamConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    ShapeSpec,
+    XLSTMConfig,
+    fam_replace,
+    smoke_variant,
+)
