@@ -9,7 +9,8 @@ exit code != 0):
 
 1. the card's name and power limit; build the five CUDA kernels from
    ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
-   sm_90a);
+   sm_90a); HGMMA (wgmma) in the SASS of the tensor-core attention kernel
+   at both its head dims (cuobjdump);
 2. ``fused_cache_step`` vs its plain version on the card: random op streams
    over padded geometries (effective sets/ways below the padding, ways
    above 32 too) and a populated fig08-sized state (72 lanes, 16384 x 16),
@@ -22,13 +23,18 @@ exit code != 0):
    PAGED_TOL at Hq 32, Hkv 8, D 64, T 16, NB 256 on strided views of the
    fast tier with lengths that end mid-block; device time per launch, the
    plain version's time, the bound and the library call's time;
-4. ``flash_attention`` vs its plain version on the card: the shapes of
-   ``tests/test_kernels.py`` and lengths that end mid-tile (Sq = Sk in
-   1, 1,000, 4,000 at D 64, 128, 256; Sq != Sk), f32 and bf16, causal and
-   not, within 2e-5 / 2e-2; the serving prefill's shape (B 4, Hq 32,
-   Hkv 8, D 64, S 4,000, bf16, causal) within FLASH_PATH_TOL; device time
-   per launch there, the plain version's time, the bound (bf16 tensor-core
-   rate) and ``scaled_dot_product_attention``'s time;
+4. ``flash_attention`` vs its plain version on the card, both kernels
+   (the tensor-core kernel for bf16 at D 64 / 128, the CUDA-core kernel
+   for the rest): the shapes of ``tests/test_kernels.py`` and lengths that
+   end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 128, 256; Sq != Sk),
+   f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64 and 128
+   over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
+   within 2e-2; each case launches the variant its type and D name; the
+   serving prefill's shape (B 4, Hq 32, Hkv 8, D 64, S 4,000, bf16,
+   causal) within FLASH_PATH_TOL; device time per launch there (and of
+   the CUDA-core kernel in f32 at that shape), the plain version's time,
+   the bound (bf16 tensor-core rate) and
+   ``scaled_dot_product_attention``'s time;
 5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
@@ -49,7 +55,8 @@ exit code != 0):
    teacher-forced on the generated tokens under ``kernel_backend="cuda"``
    and ``"torch"``, the prefill's logits and K/V cache and every decode
    step's logits within SERVE_TOL; prefill and decode walls and tokens/s,
-   the kernel's share of a profiled prefill's device time, device kernels
+   the kernel's share of a profiled prefill's device time (all 40 launches
+   the tensor-core kernel), device kernels
    per decode step, greedy agreement of the two backends;
 8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
@@ -120,12 +127,21 @@ FLASH_SHAPES = ((2, 64, 4, 2, 32), (1, 128, 8, 1, 16), (2, 64, 4, 4, 64), (1, 25
 FLASH_LENGTHS = (1, 1000, 4000)
 FLASH_UNEQUAL = ((1000, 3000), (3000, 1000))
 FLASH_DIMS = (64, 128, 256)
+# the tensor-core kernel's own cases: bf16 at its head dims, lengths that end
+# mid-tile and Sq != Sk, every group size of the dense configs and more
+# (G 6 fills no power-of-two tile), on strided views of a fused q/k/v tensor
+FLASH_TC_DIMS = (64, 128)
+FLASH_TC_LENGTHS = ((1, 1), (1000, 1000), (4000, 4000), (1000, 3000), (3000, 1000))
+FLASH_TC_GROUPS = (1, 4, 6, 8, 32)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # at the path's shape: bf16's 2e-2 as rtol (over 2 ulps), atol cut to 1e-3,
 # 1/40 of the typical |out| of 0.04 at S 4,000, so an error at the scale
 # of the outputs fails
 FLASH_PATH_TOL = {"rtol": 2e-2, "atol": 1e-3}
 BF16_FLOPS = 989e12            # H100 SXM published dense bf16 rate (tensor cores)
+# the tensor-core kernel at D 128 is timed at yi-9b's attention widths
+# (src/repro/configs/yi_9b.py) at the serving batch and prompt
+FLASH_D128_ARCH = "yi-9b"
 # serving at granite-3-2b (src/repro/configs/granite_3_2b.py), full width
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
@@ -373,15 +389,48 @@ def _wrappers():
 def reset_counts():
     for wrapper in _wrappers().values():
         wrapper.launches = 0
+    variants = _wrappers()["flash_attention"].variant_launches
+    for name in variants:
+        variants[name] = 0
 
 
 def counts():
     return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
+def flash_variants():
+    """flash_attention's launches by variant ("tensor_core", "cuda_core")."""
+    return dict(_wrappers()["flash_attention"].variant_launches)
+
+
 def build_all():
     from repro_torch.kernels.nvcc import build_all as nvcc_build_all
     return nvcc_build_all([ROOT / src for src, _ in KERNELS.values()])
+
+
+def tensor_core_sass():
+    """HGMMA (wgmma) instructions in the SASS of each instantiation of the
+    tensor-core attention kernel, by head dim, from cuobjdump on the built
+    library; every instantiation must have some."""
+    from repro_torch.kernels.flash_attention.kernel import TC_DIMS
+    from repro_torch.kernels.nvcc import library_path, nvcc
+    lib = library_path(ROOT / KERNELS["flash_attention"][0])
+    sass = subprocess.run([str(Path(nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            # the mangled template argument: ...wgmma_kernelILi64EE...
+            name = fn.split("flash_attention_wgmma_kernelILi")[1].split("E")[0] \
+                if "flash_attention_wgmma_kernel" in fn else None
+            if name is not None:
+                found[name] = 0
+        elif name in found and "HGMMA" in line:
+            found[name] += 1
+    check(set(found) == {str(d) for d in TC_DIMS} and all(found.values()),
+          f"HGMMA in the tensor-core kernel's instantiations: {found}")
+    return found
 
 
 # --------------------------------------------------------------------------
@@ -560,41 +609,68 @@ def _attention_flops(B, Sq, Sk, Hq, D, causal):
     return 4.0 * B * Hq * D * pairs
 
 
+def _fused_qkv(torch, rnd, B, Sq, Sk, Hq, Hkv, D):
+    """q, k and v as strided views of one tensor, the layout a fused q/k/v
+    projection gives: q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D) slices
+    along the heads of (B, max(Sq, Sk), Hq + 2 Hkv, D)."""
+    qkv = rnd((B, max(Sq, Sk), Hq + 2 * Hkv, D), torch.bfloat16)
+    return qkv[:, :Sq, :Hq], qkv[:, :Sk, Hq:Hq + Hkv], qkv[:, :Sk, Hq + Hkv:]
+
+
 def flash_vs_plain(torch):
     """flash_attention: within FLASH_TOL of the plain version on the shapes
     of tests/test_kernels.py, on lengths that end mid-tile (Sq = Sk and
-    Sq != Sk) at every dense head dim, f32 and bf16, causal and not; then
-    the serving prefill's shape (bf16, causal) against the plain version
-    within FLASH_PATH_TOL, timed there beside the library call."""
+    Sq != Sk) at every dense head dim, f32 and bf16, causal and not; bf16
+    at the tensor-core head dims over FLASH_TC_GROUPS on strided views;
+    each case launches the variant ``variant`` names. Then the serving
+    prefill's shape (bf16, causal) against the plain version within
+    FLASH_PATH_TOL, timed there beside the library call and the CUDA-core
+    kernel in f32."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import variant
     dev = torch.device(DEVICE)
     cgen = torch.Generator(device=dev).manual_seed(5)
 
     def rnd(shape, dtype):
         return torch.randn(shape, generator=cgen, device=dev, dtype=dtype)
-    cases = [(b, s, s, hq, hkv, d) for b, s, hq, hkv, d in FLASH_SHAPES]
-    cases += [(1, s, s, 8, 2, d) for s in FLASH_LENGTHS for d in FLASH_DIMS]
-    cases += [(1, sq, sk, 8, 2, 64) for sq, sk in FLASH_UNEQUAL]
-    errs, n = {}, 0
-    for b, sq, sk, hq, hkv, d in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[1]
-            tol = FLASH_TOL[name]
+    cases = [(b, s, s, hq, hkv, d, dtype) for b, s, hq, hkv, d in FLASH_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, s, s, 8, 2, d, dtype) for s in FLASH_LENGTHS for d in FLASH_DIMS
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, sq, sk, 8, 2, 64, dtype) for sq, sk in FLASH_UNEQUAL
+              for dtype in (torch.float32, torch.bfloat16)]
+    tc_cases = [(1, sq, sk, g * (1 if g == 32 else 2), 1 if g == 32 else 2, d, torch.bfloat16)
+                for d in FLASH_TC_DIMS for sq, sk in FLASH_TC_LENGTHS for g in FLASH_TC_GROUPS]
+    errs, n = {}, {}
+    for i, (b, sq, sk, hq, hkv, d, dtype) in enumerate(cases + tc_cases):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        if i < len(cases):
             q, k, v = rnd((b, sq, hq, d), dtype), rnd((b, sk, hkv, d), dtype), rnd((b, sk, hkv, d), dtype)
-            for causal in (True, False):
-                got = flash_attention(q, k, v, causal=causal)
-                want = flash_attention_ref(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                check(got.shape == want.shape and got.dtype == dtype
-                      and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-                      f"flash_attention != plain at B {b}, Sq {sq}, Sk {sk}, Hq {hq}, "
-                      f"Hkv {hkv}, D {d}, {name}, causal {causal}: max abs err {err}")
-                errs[name] = max(errs.get(name, 0.0), err)
-                n += 1
+        else:
+            q, k, v = _fused_qkv(torch, rnd, b, sq, sk, hq, hkv, d)
+        which = variant(dtype, d)
+        for causal in (True, False):
+            before = flash_variants()
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            after = flash_variants()
+            err = float((got.float() - want.float()).abs().max())
+            what = (f"B {b}, Sq {sq}, Sk {sk}, Hq {hq}, Hkv {hkv}, D {d}, {name}, "
+                    f"causal {causal}, {'strided' if i >= len(cases) else 'contiguous'}")
+            check(after[which] == before[which] + 1 and sum(after.values()) == sum(before.values()) + 1,
+                  f"flash_attention at {what} launched {after} (before {before}), expected {which}")
+            check(got.shape == want.shape and got.dtype == dtype
+                  and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                  f"flash_attention ({which}) != plain at {what}: max abs err {err}")
+            key = f"{which} {name}"
+            errs[key] = max(errs.get(key, 0.0), err)
+            n[key] = n.get(key, 0) + 1
     B, S, Hq, Hkv, D = _serving_attention_shape()
     q, k, v = (rnd((B, S, h, D), torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    check(variant(q.dtype, D) == "tensor_core", "the serving prefill runs the tensor-core kernel")
     got, want = flash_attention(q, k, v).float(), flash_attention_ref(q, k, v).float()
     torch.cuda.synchronize()
     diff = (got - want).abs()
@@ -610,22 +686,47 @@ def flash_vs_plain(torch):
     bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out = dict(max_abs_err=path_err,
-               ms=_device_ms(torch, lambda: flash_attention(q, k, v), 10, "flash_attention_kernel"),
+               ms=_device_ms(torch, lambda: flash_attention(q, k, v), 20,
+                             "flash_attention_wgmma_kernel"),
                plain_ms=_time(torch, lambda: flash_attention_ref(q, k, v), 3),
                bound_ms=bound_ms, bound_by=bound_by,
                library_ms=_device_ms(torch, lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+                   qt, kt, vt, is_causal=True, enable_gqa=True), 20),
                shape=f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal",
                bytes=nbytes, flops=flops)
-    print(f"flash_attention: {n} cases within tolerance (max abs err f32 {errs['float32']:.3g}, "
-          f"bf16 {errs['bfloat16']:.3g}); at the serving prefill ({out['shape']}): "
-          f"max abs err vs plain {path_err:.3g} (mean |out| {mean_abs:.3g}; {path_used:.3g} of "
-          f"the allowance atol {FLASH_PATH_TOL['atol']} + rtol {FLASH_PATH_TOL['rtol']} |ref| "
-          f"used); kernel {out['ms']:.4f} ms device "
-          f"time/launch, plain {out['plain_ms']:.4f} ms/call, bound {bound_ms:.4f} ms "
-          f"({flops:.4g} operations at {BF16_FLOPS:.4g}/s, {nbytes} B; {bound_by}), library "
-          f"(scaled_dot_product_attention) {out['library_ms']:.4f} ms, "
-          f"{flops / out['ms'] / 1e9:.2f} TFLOP/s achieved", flush=True)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    f32_ms = _device_ms(torch, lambda: flash_attention(qf, kf, vf), 3, "flash_attention_kernel")
+    f32_bound, _ = _bound(2 * nbytes, flops, F32_FLOPS)
+    del qf, kf, vf
+    from repro_torch.configs.registry import get_config
+    big = get_config(FLASH_D128_ARCH)
+    Hq2, Hkv2, D2 = big.num_heads, big.num_kv_heads, big.head_dim
+    q2, k2, v2 = (rnd((B, S, h, D2), torch.bfloat16) for h in (Hq2, Hkv2, Hkv2))
+    flops2 = _attention_flops(B, S, S, Hq2, D2, True)
+    d128_ms = _device_ms(torch, lambda: flash_attention(q2, k2, v2), 20, "flash_attention_wgmma_kernel")
+    qt2, kt2, vt2 = (x.transpose(1, 2) for x in (q2, k2, v2))
+    d128_lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt2, kt2, vt2, is_causal=True, enable_gqa=True), 20)
+    del q2, k2, v2, qt2, kt2, vt2
+    print("flash_attention cases within tolerance, by variant and type: " +
+          ", ".join(f"{key} {n[key]} (max abs err {errs[key]:.3g})" for key in sorted(n)),
+          flush=True)
+    print(f"flash_attention at the serving prefill ({out['shape']}): max abs err vs plain "
+          f"{path_err:.3g} (mean |out| {mean_abs:.3g}; {path_used:.3g} of the allowance atol "
+          f"{FLASH_PATH_TOL['atol']} + rtol {FLASH_PATH_TOL['rtol']} |ref| used); tensor-core "
+          f"kernel {out['ms']:.4f} ms device time/launch, {flops / out['ms'] / 1e9:.2f} TFLOP/s, "
+          f"{bound_ms / out['ms']:.2%} of the bound {bound_ms:.4f} ms ({flops:.4g} operations at "
+          f"{BF16_FLOPS:.4g}/s, {nbytes} B; {bound_by}); library (scaled_dot_product_attention) "
+          f"{out['library_ms']:.4f} ms, kernel / library {out['ms'] / out['library_ms']:.3f}; "
+          f"plain {out['plain_ms']:.4f} ms/call; CUDA-core kernel in f32 at that shape "
+          f"{f32_ms:.4f} ms ({flops / f32_ms / 1e9:.2f} TFLOP/s, bound {f32_bound:.4f} ms at "
+          f"{F32_FLOPS:.4g}/s)", flush=True)
+    print(f"flash_attention at D 128 ({FLASH_D128_ARCH}: B {B}, S {S}, Hq {Hq2}, Hkv {Hkv2}, "
+          f"D {D2}, bf16, causal): tensor-core kernel {d128_ms:.4f} ms device time/launch, "
+          f"{flops2 / d128_ms / 1e9:.2f} TFLOP/s, {flops2 / BF16_FLOPS * 1e3 / d128_ms:.2%} of "
+          f"its bound {flops2 / BF16_FLOPS * 1e3:.4f} ms ({flops2:.4g} operations); library "
+          f"{d128_lib:.4f} ms, kernel / library {d128_ms / d128_lib:.3f}",
+          flush=True)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -873,6 +974,7 @@ def serving_path(torch):
     gen, stats = engine.generate({"tokens": tokens})
     wall = time.perf_counter() - t0
     launched = counts()
+    launched_variants = flash_variants()
     L = cfg.num_layers
     check(launched["flash_attention"] == L,
           f"flash_attention launched {launched['flash_attention']} times, expected {L}")
@@ -881,10 +983,13 @@ def serving_path(torch):
     check(gen.shape == (SERVE_BATCH, SERVE_NEW) and gen.dtype == np.int32
           and gen.min() >= 0 and gen.max() < cfg.vocab_size, f"generated tokens {gen}")
     check(stats == {"prefill_len": SERVE_PROMPT, "new_tokens": SERVE_NEW}, f"stats {stats}")
+    check(launched_variants == {"tensor_core": L, "cuda_core": 0},
+          f"flash_attention variants launched {launched_variants}, expected {L} tensor_core")
     print(f"serving {cfg.name}: {n_params} params ({cfg.param_dtype}, {cfg.dtype} compute, "
           f"random from seed {SERVE_SEED}, {init_s:.3f} s to draw); Engine.generate on "
           f"{SERVE_BATCH} x {SERVE_PROMPT} prompt tokens + {SERVE_NEW} new in {wall:.3f} s; "
-          f"flash_attention launches {launched['flash_attention']} ({L} layers, 1 prefill)",
+          f"flash_attention launches {launched['flash_attention']} ({L} layers, 1 prefill; "
+          f"by variant {launched_variants})",
           flush=True)
 
     fed = torch.from_numpy(gen).to(DEVICE)
@@ -929,14 +1034,17 @@ def serving_path(torch):
 
     p_wall, p_events = _kernel_events(torch, lambda i: model.prefill(params, {"tokens": tokens}))
     busy = sum(e.time_range.elapsed_us() for e in p_events) / 1e3
-    fa = [e.time_range.elapsed_us() for e in p_events if "flash_attention_kernel" in e.name]
-    check(len(fa) == L, f"profiler saw {len(fa)} flash_attention launches in a prefill")
+    fa = [e.time_range.elapsed_us() for e in p_events if "flash_attention_wgmma_kernel" in e.name]
+    old = [e for e in p_events if "flash_attention_kernel" in e.name]
+    check(len(fa) == L and not old,
+          f"profiler saw {len(fa)} flash_attention_wgmma_kernel and {len(old)} "
+          f"flash_attention_kernel launches in a prefill, expected {L} and 0")
     d_wall, d_events = _kernel_events(torch, lambda i: model.decode(
         params, kern["cache"], {"tokens": fed[:, -1:], "index": S + SERVE_NEW - 1}))
     d_busy = sum(e.time_range.elapsed_us() for e in d_events) / 1e3
     print(f"serving profile: one prefill {p_wall * 1e3:.3f} ms wall under the profiler, "
           f"device busy {busy:.3f} ms ({busy / 1e3 / p_wall:.2%} of that wall), "
-          f"{len(p_events)} device kernels, flash_attention_kernel {sum(fa) / 1e3:.3f} ms "
+          f"{len(p_events)} device kernels, flash_attention_wgmma_kernel {sum(fa) / 1e3:.3f} ms "
           f"= {sum(fa) / 1e3 / busy:.2%} of the prefill's device time; one decode step "
           f"{d_wall * 1e3:.3f} ms wall, device busy {d_busy:.3f} ms "
           f"({d_busy / 1e3 / d_wall:.2%}), {len(d_events)} device kernels", flush=True)
@@ -1083,6 +1191,9 @@ def main(argv=None):
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     for lib, log in phases.run("build", build_all):
         print(f"built {lib.name}\n{log.strip()}", flush=True)
+    hgmma = tensor_core_sass()
+    print("HGMMA instructions in the SASS of flash_attention_wgmma_kernel: " +
+          ", ".join(f"D {d}: {c}" for d, c in sorted(hgmma.items())), flush=True)
     gen = torch.Generator().manual_seed(0)
     max_err, timing = phases.run("kernel_vs_plain", kernel_vs_plain, torch, gen)
     tiering = phases.run("tiering_kernels_vs_plain", tiering_kernels_vs_plain, torch, gen)

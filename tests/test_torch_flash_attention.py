@@ -9,8 +9,12 @@ plain version in one pass). Lengths the Pallas wrapper does not take
 (Sq != Sk, lengths that are no tile multiple) are held to the JAX plain
 version. They also check the wrapper's input checks, that it counts no
 launch on CPU tensors, and that the CUDA source is built with the others.
-The kernel itself is held to the same plain version on the card by
-``chip_smoke.py``.
+Two kernels sit behind the wrapper, picked by type and head dim alone
+(:func:`kernel.variant`): the tensor-core kernel for bfloat16 at D 64 and
+128, the CUDA-core kernel for everything else; these tests check that
+choice, the per-variant launch counts and that the wrapper's constants are
+the source's. The kernels themselves are held to the same plain version on
+the card by ``chip_smoke.py``.
 """
 import os
 import re
@@ -90,6 +94,41 @@ def test_any_length_matches_jax_ref(Sq, Sk, bf16, causal):
     _close(flash_attention(q, k, v, causal=causal), want, bf16)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 6])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_shapes_match_jax_ref(D, G, causal):
+    """bf16 at the tensor-core head dims, G query heads per kv head and
+    lengths that end mid-tile: the CPU wrapper (the plain version) against
+    the JAX plain version."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 37, 53, 2 * G, 2, D, True, seed=5)
+    assert fa_kernel.variant(q.dtype, D) == "tensor_core"
+    want = j_flash_attention_ref(jq, jk, jv, causal=causal)
+    _close(flash_attention(q, k, v, causal=causal), want, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 64, 128, 256])
+def test_variant_is_chosen_by_type_and_head_dim(dtype, D):
+    """bf16 at D 64 or 128 runs on the tensor cores; float32 (which needs
+    true float32 products for its 2e-5) and bf16 at other D on the CUDA
+    cores."""
+    want = "tensor_core" if dtype == torch.bfloat16 and D in (64, 128) else "cuda_core"
+    assert fa_kernel.variant(dtype, D) == want
+    assert want in fa_kernel.VARIANTS
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                     (torch.float32, 64), (torch.bfloat16, 32)])
+def test_cpu_wrapper_counts_no_launch_of_either_variant(dtype, D):
+    _, (q, k, v) = _inputs(1, 9, 9, 4, 2, D, False, seed=6)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = dict(flash_attention.variant_launches)
+    assert set(before) == set(fa_kernel.VARIANTS)
+    flash_attention(q, k, v)
+    assert flash_attention.variant_launches == before
+
+
 def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     _, (q, k, v) = _inputs(2, 40, 40, 8, 2, 16, False, seed=3)
     before = flash_attention.launches
@@ -159,6 +198,46 @@ def test_wrapper_limits_are_the_source_constants(name, constant):
     constants."""
     found = re.search(rf"constexpr int {constant} = (\d+);", fa_kernel.SOURCE.read_text())
     assert found and int(found.group(1)) == getattr(fa_kernel, name)
+
+
+@pytest.mark.parametrize("name,constant", [
+    ("TC_ROWS", "kTcRows"), ("TC_KEYS", "kTcKeys"),
+    ("TC_STAGES[64]", "kTcStages64"), ("TC_STAGES[128]", "kTcStages128")])
+def test_tensor_core_constants_are_the_source_constants(name, constant):
+    """Rows per CTA, keys per tile and ring stages of the tensor-core kernel
+    are the source's constexprs."""
+    found = re.search(rf"constexpr int {constant} = (\d+);", fa_kernel.SOURCE.read_text())
+    attr, _, key = name.partition("[")
+    value = getattr(fa_kernel, attr)
+    if key:
+        value = value[int(key[:-1])]
+    assert found and int(found.group(1)) == value
+
+
+def test_tensor_core_entry_takes_the_wrapper_head_dims_and_arguments():
+    """The C entry launches the tensor-core kernel for exactly TC_DIMS, and
+    the wrapper's ctypes signature has one type per C parameter."""
+    text = fa_kernel.SOURCE.read_text()
+    dims = re.findall(r"if \(D == (\d+)\) return launch_wgmma<(\d+)>", text)
+    assert [(int(a), int(b)) for a, b in dims] == [(d, d) for d in fa_kernel.TC_DIMS]
+    for symbol, entry in (("flash_attention_wgmma", fa_kernel._wgmma_entry),
+                          ("flash_attention", fa_kernel._entry)):
+        sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*{{', text, re.S).group(1)
+        assert entry.symbol == symbol and len(entry.argtypes) == sig.count(",") + 1
+
+
+def test_source_holds_both_kernels():
+    """The tensor-core kernel (wgmma fed by TMA through mbarriers, a
+    producer warpgroup giving its registers to the consumers) sits beside
+    the CUDA-core kernel (cp.async tiles), under names the profiler tells
+    apart."""
+    text = fa_kernel.SOURCE.read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                   "setmaxnreg.dec", "setmaxnreg.inc", "cuTensorMapEncodeTiled",
+                   "__pipeline_memcpy_async", "flash_attention_wgmma_kernel(",
+                   "flash_attention_kernel("):
+        assert needle in text, needle
+    assert "flash_attention_kernel" not in "flash_attention_wgmma_kernel"
 
 
 def test_source_exists_and_is_built_with_the_others():
