@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # the checks below, 5-10 min on an H100
-    python3 chip_smoke.py --profile  # also a torch.profiler window of the grid
+    python3 chip_smoke.py --profile  # also the profiler's table of the grid's ops
 
 Phases, in this order (each prints its seconds; any failed check raises,
 exit code != 0):
@@ -13,9 +13,11 @@ exit code != 0):
    at both its head dims (cuobjdump);
 2. ``fused_cache_step`` vs its plain version on the card: random op streams
    over padded geometries (effective sets/ways below the padding, ways
-   above 32 too) and a populated fig08-sized state (72 lanes, 16384 x 16),
-   LRU and SRRIP, exact equality of tags, lru, stamp, hit and probe hits;
-   times per launch and per plain step and the byte bound;
+   above 32 too), streams whose fills, demand and probes all fall into 1
+   or 2 effective sets (ways_pad 16 and 40: every row of an event shares a
+   few shared-memory slots) and a populated fig08-sized state (72 lanes,
+   16384 x 16), LRU and SRRIP, exact equality of tags, lru, stamp, hit and
+   probe hits; times per launch and per plain step and the byte bound;
 3. ``cache_lookup``, ``block_gather`` and ``paged_attention`` vs their plain
    versions on the card: lookups exact on random tags and a populated
    32 x 16 state (K 1..260), gathers exact in bf16 at the 3 MB expert-slab
@@ -60,12 +62,18 @@ exit code != 0):
    per decode step, greedy agreement of the two backends;
 8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
-   padded to 16384 x 16) through ``repro_torch.core.famsim.sweep`` with the
-   kernel launched once per event; per-block-size ipc_gain /
-   rel_fam_latency geomeans and simulated events/s/device;
-9. the same grid at T = 2,000 with ``kernel_backend="cuda"`` and
-   ``"torch"``: every metric bit-identical; the golden configuration
-   against ``src/repro_torch/testdata/famsim_golden.json``.
+   padded to 16384 x 16) through ``repro_torch.core.famsim.sweep``, which
+   replays a CUDA graph of ``GRAPH_EVENTS`` steps, the kernel launched once
+   per event; per-block-size ipc_gain / rel_fam_latency geomeans, simulated
+   events/s/device and the graph's capture time and memory pool;
+9. the same grid at T = 2,000 three ways: graphed with
+   ``kernel_backend="cuda"``, graphed with ``"torch"``, and step by step on
+   the card (``run_steps(eager=True)``) with ``"cuda"``: every metric
+   bit-identical, the eager and graphed events/s side by side; the golden
+   configuration against ``src/repro_torch/testdata/famsim_golden.json``;
+10. a torch.profiler window of a graphed 200-event sweep of the grid:
+   exactly 200 ``cache_step_kernel`` launches; over the replays, device
+   kernels per event and the device's busy share.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last two lines of standard output are the kernel table
@@ -77,6 +85,7 @@ generator on the card; queries and routing from numpy seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -146,6 +155,7 @@ FLASH_D128_ARCH = "yi-9b"
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
 SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|, rtol 0.05
+PROFILE_MARGIN_S = 0.1         # idle seconds at each end of a profiler window
 
 
 def check(ok, msg):
@@ -211,8 +221,10 @@ def _ops(torch, tags, C, P, gen):
 
 
 def _compare_stream(torch, lanes, pad_sets, pad_ways, num_sets, ways, mode,
-                    steps, C, P, gen, populate):
-    """Kernel and plain version on the card from the same state; exact."""
+                    steps, C, P, gen, populate, blocks=None):
+    """Kernel and plain version on the card from the same state; exact.
+    Unpopulated streams draw block ids below ``blocks`` (default 4 x the
+    padded entries)."""
     from repro_torch.kernels.famsim_step import cache_step_ref, fused_cache_step
     from repro_torch.core.dram_cache import CacheState
     from repro_torch.policies.replacement import _SrripBound
@@ -230,11 +242,12 @@ def _compare_stream(torch, lanes, pad_sets, pad_ways, num_sets, ways, mode,
         if populate:
             args = _ops(torch, k.tags, C, P, gen)
         else:
-            args = (torch.randint(0, 4 * pad_sets * pad_ways, (lanes, C), generator=gen).to(dev, torch.int32),
+            hi = blocks or 4 * pad_sets * pad_ways
+            args = (torch.randint(0, hi, (lanes, C), generator=gen).to(dev, torch.int32),
                     torch.rand((lanes, C), generator=gen).to(dev) < 0.7,
-                    torch.randint(0, 4 * pad_sets * pad_ways, (lanes,), generator=gen).to(dev, torch.int32),
+                    torch.randint(0, hi, (lanes,), generator=gen).to(dev, torch.int32),
                     torch.rand((lanes,), generator=gen).to(dev) < 0.8,
-                    torch.randint(0, 4 * pad_sets * pad_ways, (lanes, P), generator=gen).to(dev, torch.int32))
+                    torch.randint(0, hi, (lanes, P), generator=gen).to(dev, torch.int32))
         khit, kph = fused_cache_step(k.tags, k.lru, k.stamp, *args, ns, ew,
                                      mode=mode, max_rrpv=3 if mode == "srrip" else 0)
         _, rhit, rph = cache_step_ref(r, *args, ns, ew, policy=policy)
@@ -326,6 +339,19 @@ def kernel_vs_plain(torch, gen):
             timing = dict(ms=_device_ms(torch, launch, 100, "cache_step_kernel"), call_ms=call_ms,
                           plain_ms=plain_ms, bytes=nbytes,
                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    # every row of an event in 1 or 2 effective sets, so fills, demand and
+    # probes alias a few shared-memory slots; block ids from 3 x ways_pad,
+    # so redundant fills, hits and evictions all occur (drawn after the
+    # timed state, whose inputs the generator then gives as before)
+    for pad_ways in (16, 40):
+        lanes = 8
+        num_sets = [1 + i % 2 for i in range(lanes)]
+        ways = [pad_ways - (i * 5) % pad_ways for i in range(lanes)]
+        for mode in ("lru", "srrip"):
+            e, *_ = _compare_stream(torch, lanes, 4, pad_ways, num_sets, ways,
+                                    mode, 40, C, P, gen, populate=False,
+                                    blocks=3 * pad_ways)
+            max_err = max(max_err, e)
     print(f"fused_cache_step @ 72 lanes x 16384 x 16, C={C}, P={P}, lru: "
           f"kernel {timing['ms'] * 1e3:.2f} us device time/launch "
           f"({timing['call_ms'] * 1e3:.2f} us per wrapper call, back to back), "
@@ -334,16 +360,30 @@ def kernel_vs_plain(torch, gen):
     return max_err, timing
 
 
+@contextlib.contextmanager
+def _profiled(torch):
+    """torch.profiler (CPU and CUDA) over the block, the card idle for
+    PROFILE_MARGIN_S at each end of the window: the profiler drops kernel
+    records whose device timestamps, taken to the host's clock, fall just
+    outside its window, and windows that began or ended on a launch lost
+    some (8 of 100, 43 of 200, 1 of 100 in three runs on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+
+
 def _device_ms(torch, fn, n, kernel=None):
     """Mean device time per call over n calls, from torch.profiler's
     kernel events (the host's work excluded): of the kernel whose name
     contains ``kernel`` (each call must launch it once), or of every kernel
     the call launches."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -748,9 +788,7 @@ def _kernel_events(torch, fn, steps=1):
     """(wall seconds, device kernel events) of ``steps`` calls ``fn(i)``
     under torch.profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             fn(i)
@@ -1081,13 +1119,23 @@ def fig08_grid(T, kernel_backend):
     return donor, stack_params(params), np.stack(addrs), np.stack(gaps), keys
 
 
-def run_grid(T, kernel_backend):
+def run_grid(T, kernel_backend, eager=False):
+    """The grid through ``sweep`` (a CUDA graph replayed per window of
+    events), or with ``eager`` through the same runner stepping each event
+    from the host. Returns (metrics, keys, wall seconds)."""
     import torch
-    from repro_torch.core.famsim import sweep
+    from repro_torch.core import famsim
+    from repro_torch.core.fam_params import tree_map
     donor, p, addrs, gaps, keys = fig08_grid(T, kernel_backend)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sweep(donor, p, None, addrs, gaps, device=DEVICE)
+    if eager:
+        dev = torch.device(DEVICE)
+        out = famsim._make_run(donor, 1, eager=True)(
+            tree_map(lambda t: t.to(dev), p), torch.as_tensor(addrs, device=dev),
+            torch.as_tensor(gaps, device=dev))
+    else:
+        out = famsim.sweep(donor, p, None, addrs, gaps, device=DEVICE)
     out = {k: v.cpu().numpy() for k, v in out.items()}
     seconds = time.perf_counter() - t0
     return out, keys, seconds
@@ -1109,6 +1157,7 @@ def fig08_rows(out, keys):
 
 
 def main_path(torch):
+    from repro_torch.core.famsim import last_graph
     reset_counts()
     out, keys, seconds = run_grid(T_MAIN, "cuda")
     launched = counts()
@@ -1123,17 +1172,32 @@ def main_path(torch):
     print(f"main path: {len(keys)} systems x 1 node x {T_MAIN} events in "
           f"{seconds:.3f} s = {events / seconds:.1f} events/s/device "
           f"({seconds / T_MAIN * 1e3:.3f} ms/step)", flush=True)
-    return launches, seconds
+    check(last_graph.get("replays") == -(-T_MAIN // last_graph.get("events", 1)),
+          f"the main path replayed no graph per window: {last_graph}")
+    replay = last_graph["replay_s"]
+    print(f"CUDA graph: {last_graph['events']} events per graph, "
+          f"{last_graph['replays']} replays, {last_graph['padded']} padded events, "
+          f"captured in {last_graph['capture_s']:.3f} s, private pool "
+          f"{last_graph['pool_bytes']} B; replays {replay:.3f} s = "
+          f"{replay / T_MAIN * 1e3:.4f} ms/event = {events / replay:.1f} "
+          f"events/s/device", flush=True)
+    return launches, seconds, replay / T_MAIN * 1e3
 
 
 def backends_and_golden(torch):
     from repro_torch.configs.base import FamConfig
     from repro_torch.core.famsim import SimFlags, build_sim
-    a, _, sa = run_grid(T_CHECK, "cuda")
+    a, keys, sa = run_grid(T_CHECK, "cuda")
     b, _, sb = run_grid(T_CHECK, "torch")
+    c, _, sc = run_grid(T_CHECK, "cuda", eager=True)
     for k in a:
         check(np.array_equal(a[k], b[k]), f"cuda and torch backends differ on {k}")
-    print(f"backends bit-identical at T={T_CHECK}: cuda {sa:.3f} s, torch {sb:.3f} s")
+        check(np.array_equal(a[k], c[k]), f"graphed and eager cuda runs differ on {k}")
+    events = len(keys) * T_CHECK
+    print(f"graphed cuda, graphed torch and eager cuda bit-identical at T={T_CHECK}: "
+          f"cuda graphed {sa:.3f} s = {events / sa:.1f} events/s/device, cuda eager "
+          f"{sc:.3f} s = {events / sc:.1f} events/s/device, torch graphed {sb:.3f} s "
+          f"= {events / sb:.1f} events/s/device")
     golden = json.loads((ROOT / "src/repro_torch/testdata/famsim_golden.json").read_text())
     # the stored traces, not this machine's numpy draws: the golden values
     # are the JAX reference's on exactly these inputs
@@ -1150,35 +1214,51 @@ def backends_and_golden(torch):
     print(f"golden configuration matches at rtol {golden['rtol']}")
 
 
-def profile_window(torch, steps=200):
-    """torch.profiler over ``steps`` events of the fig08 grid: device busy
-    share and the kernels per step."""
+def profile_window(torch, table, replay_ms, steps=200):
+    """torch.profiler over a graphed sweep of ``steps`` events of the fig08
+    grid, after a short sweep of the same grid (which loads its kernels):
+    exactly ``steps`` cache_step_kernel launches; over the replays (from
+    the first to the last of those launches) the device kernels per event,
+    their device time per event, and that time's share of the profiled
+    span and of ``replay_ms``, the main path's unprofiled replay wall per
+    event (tracing each kernel slows the replays); with ``table`` the
+    profiler's op table."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import famsim
     donor, p, addrs, gaps, _ = fig08_grid(steps, "cuda")
     famsim.sweep(donor, p, None, addrs[..., :20], gaps[..., :20], device=DEVICE)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         famsim.sweep(donor, p, None, addrs, gaps, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    ours = [e.time_range.elapsed_us() for e in kernels if "cache_step_kernel" in e.name]
-    print(f"profile: {steps} steps, wall {wall / steps * 1e3:.3f} ms/step, device busy "
-          f"{dev_us / 1e3 / steps:.4f} ms/step ({dev_us / 1e6 / wall:.2%} of wall), "
-          f"{len(kernels) / steps:.1f} device kernels/step; cache_step_kernel "
-          f"{np.mean(ours) if ours else float('nan'):.2f} us/launch device time over "
-          f"{len(ours)} launches")
-    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    ours = [e for e in kernels if "cache_step_kernel" in e.name]
+    check(len(ours) == steps, f"profiler saw {len(ours)} cache_step_kernel launches "
+          f"in a graphed {steps}-event sweep, expected {steps}")
+    t_first, t_last = ours[0].time_range.start, ours[-1].time_range.end
+    replayed = [e for e in kernels
+                if e.time_range.start >= t_first and e.time_range.end <= t_last]
+    busy = sum(e.time_range.elapsed_us() for e in replayed)
+    busy_ms = busy / (steps - 1) / 1e3
+    print(f"profile: graphed sweep of {steps} events in {wall:.3f} s wall (capture "
+          f"included); over the replays {len(replayed) / (steps - 1):.1f} device "
+          f"kernels/event, device time {busy_ms:.4f} ms/event = "
+          f"{busy / (t_last - t_first):.2%} of the profiled span "
+          f"({(t_last - t_first) / (steps - 1) / 1e3:.4f} ms/event) and "
+          f"{busy_ms / replay_ms:.2%} of the unprofiled replay wall "
+          f"({replay_ms:.4f} ms/event, main path); cache_step_kernel "
+          f"{np.mean([e.time_range.elapsed_us() for e in ours]):.2f} us/launch device "
+          f"time over {len(ours)} launches", flush=True)
+    if table:
+        print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a window of the grid with torch.profiler")
+                    help="also print the profiler's op table of the grid's window")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1201,10 +1281,9 @@ def main(argv=None):
     kv_launched, _ = phases.run("tiered_kv", tiered_kv_path, torch)
     moe_launched = phases.run("expert_tiering", expert_path, torch)
     serve_launched = phases.run("serving", serving_path, torch)
-    launches, _ = phases.run("main_path", main_path, torch)
+    launches, _, replay_ms = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
-    if args.profile:
-        phases.run("profile", profile_window, torch)
+    phases.run("graph_profile", profile_window, torch, args.profile, replay_ms)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(smi)
     rows = {"fused_cache_step": dict(

@@ -17,6 +17,13 @@ and a Python loop over events takes the place of ``lax.scan``. Each step:
   C. (per node) latency and IPC accounting, prefetch-queue fills,
      adaptation.
 
+:func:`run_steps` drives the step over the events in windows of
+:data:`GRAPH_EVENTS`, each step updating fixed carry buffers in place. On
+CUDA tensors one window of in-place steps is captured once in a CUDA graph
+and replayed for every window, so the host issues one graph launch per
+window instead of some 700 kernels per event; on CPU tensors the same
+windows run step by step.
+
 ``FamConfig`` gives the shapes (the padded cache allocation, table sizes,
 degrees); ``FamParams`` every per-system value, the effective cache
 geometry included; a ``PolicySet`` names the policy implementations.
@@ -28,6 +35,7 @@ CPU (the cache step then runs its plain version).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -40,7 +48,8 @@ from repro_torch.core.addresses import (PAGE_BITS, dyn_block_addr,
                                         dyn_blocks_per_page, dyn_split)
 from repro_torch.core.fam_params import FamParams, stack_params, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.kernels.famsim_step import cache_step, fused_replacement_mode
+from repro_torch.kernels.famsim_step import (cache_step, fused_cache_step,
+                                             fused_replacement_mode)
 from repro_torch.policies import DEFAULT_POLICY_SET, PolicySet, SimFlags
 
 __all__ = ["SimFlags", "PolicySet", "NodeState", "build_sim", "sweep",
@@ -48,6 +57,15 @@ __all__ = ["SimFlags", "PolicySet", "NodeState", "build_sim", "sweep",
 
 F32, I32 = torch.float32, torch.int32
 FAM_PAGE_MULT = 0x61C88647
+#: Events per CUDA graph. 100 divides the fig08 grid's lengths (12,000
+#: events, and the 2,000 and 200 of its checks), so no padded event runs there.
+GRAPH_EVENTS = 100
+#: The last graphed run: events per graph, replays, padded events, the
+#: graph's private memory pool in bytes, and the wall seconds of the
+#: capture and of the replays (window copies included, synchronised).
+last_graph: Dict[str, float] = {}
+# step configurations whose kernels a warm-up step has loaded (see _capture)
+_warmed = set()
 
 
 def _resolve(policies: Optional[PolicySet]) -> PolicySet:
@@ -335,6 +353,7 @@ def _make_step(cfg: FamConfig, num_nodes: int,
                          cpf_fin, impls)
         return nodes, t.new_busy
 
+    step.key = (cfg, num_nodes, policies)
     return step
 
 
@@ -363,33 +382,136 @@ def _metrics(nodes: NodeState, p: FamParams) -> Dict[str, torch.Tensor]:
     }
 
 
-def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live):
+def _leaves(tree):
+    """The tensors of a carry (tuples and NamedTuples of tensors), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for node in tree for leaf in _leaves(node)]
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    nodes = [_clone(node) for node in tree]
+    return type(tree)(*nodes) if hasattr(tree, "_fields") else type(tree)(nodes)
+
+
+def _in_place(step):
+    """``step`` as an update of fixed carry buffers: step_(p, buf, inputs)
+    runs one event on ``buf`` and copies each new carry tensor into its
+    buffer, so every buffer keeps its storage from event to event (what a
+    captured graph replays against). Tensors the step already updated in
+    place are its buffers and need no copy."""
+    def step_(p, buf, inputs):
+        new = step(p, buf, inputs)
+        for b, n in zip(_leaves(buf), _leaves(new)):
+            if n is not b:
+                b.copy_(n)
+
+    return step_
+
+
+def _capture(step, p, buf, xs, run_window):
+    """One CUDA graph of ``run_window`` (``len(xs[0])`` in-place steps on
+    ``buf``, inputs read from the window buffers ``xs``). Returns (graph,
+    kernel launches per event).
+
+    The first capture of a step configuration in the process runs one
+    in-place step on a side stream first, on the window's first event,
+    which is not live (an exact no-op): it loads the kernels the step uses.
+    Nothing is launched by the capture itself, so the launches its wrapper
+    calls counted, and the warm-up's, are taken back here; the caller
+    counts the replayed ones."""
+    dev = xs[0].device
+    launches = fused_cache_step.launches
+    key = (step.key, dev, tuple((t.shape, t.dtype) for t in _leaves(buf) + list(xs)))
+    if key not in _warmed:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _in_place(step)(p, buf, tuple(x[0] for x in xs))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _warmed.add(key)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved, t0 = torch.cuda.memory_reserved(dev), time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    before = fused_cache_step.launches
+    with torch.cuda.graph(graph):
+        run_window()
+    per_event = (fused_cache_step.launches - before) // len(xs[0])
+    fused_cache_step.launches = launches
+    last_graph.update(pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+                      capture_s=time.perf_counter() - t0)
+    return graph, per_event
+
+
+def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, *,
+              eager: bool = False, window: int = GRAPH_EVENTS):
     """Drive ``step`` over the events: addrs (S, N, T) int32, gaps
     (S, N, T) float32 (already divided by cores per node), warm/live
-    (T, S) bool; ``p`` is the per-node view. Returns the final carry."""
-    addrs_t = addrs.permute(2, 0, 1).contiguous()
-    gaps_t = gaps.permute(2, 0, 1).contiguous()
-    warm, live = warm.unsqueeze(-1), live.unsqueeze(-1)
-    for i in range(addrs_t.shape[0]):
-        carry = step(p, carry, (addrs_t[i], gaps_t[i], warm[i], live[i]))
-    return carry
+    (T, S) bool; ``p`` is the per-node view. Returns the final carry, in
+    buffers cloned from ``carry`` once.
+
+    The events run in windows of ``window``, the last one padded with
+    events that are neither live nor warm (exact no-ops, as
+    :func:`_make_run_masked` relies on), each event one in-place step
+    (:func:`_in_place`). On CUDA tensors one window is captured in a CUDA
+    graph and replayed once per window, each window's events copied into
+    the graph's input buffers first; a failed capture or replay raises.
+    ``fused_cache_step.launches`` then counts the kernel launches of the
+    live events. ``eager=True`` runs the windows step by step on the card
+    instead, for comparison; on CPU tensors they always run so."""
+    T = addrs.shape[-1]
+    n_windows = -(-T // window)
+    pad = n_windows * window - T
+    events = (addrs.permute(2, 0, 1), gaps.permute(2, 0, 1),
+              warm.unsqueeze(-1), live.unsqueeze(-1))
+    events = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in events]
+    xs = [torch.zeros_like(x[:window]) for x in events]
+    buf = _clone(carry)
+    step_ = _in_place(step)
+
+    def run_window():
+        for i in range(window):
+            step_(p, buf, tuple(x[i] for x in xs))
+
+    graph = None
+    if addrs.device.type == "cuda" and not eager:
+        graph, per_event = _capture(step, p, buf, xs, run_window)
+    t0 = time.perf_counter()
+    for w in range(n_windows):
+        for x, full in zip(xs, events):
+            x.copy_(full[w * window:(w + 1) * window])
+        if graph is None:
+            run_window()
+        else:
+            graph.replay()
+    if graph is not None:
+        torch.cuda.synchronize(addrs.device)
+        fused_cache_step.launches += per_event * T
+        last_graph.update(events=window, replays=n_windows, padded=pad,
+                          replay_s=time.perf_counter() - t0)
+    return buf
 
 
 def _simulate(cfg, num_nodes, p, addrs, gaps, warm, live, pad_sets, pad_ways,
-              policies):
+              policies, eager=False):
     step = _make_step(cfg, num_nodes, policies)
     pn = _per_node(p)
     gaps = gaps.to(F32) / pn.cores_per_node[..., None]   # aggregate stream
     carry = _init_carry(cfg, pn, num_nodes, pad_sets, pad_ways, policies)
-    nodes, _ = run_steps(step, pn, carry, addrs.to(I32), gaps, warm, live)
+    nodes, _ = run_steps(step, pn, carry, addrs.to(I32), gaps, warm, live,
+                         eager=eager)
     return _metrics(nodes, pn)
 
 
 def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
               pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
-              policies: Optional[PolicySet] = None):
+              policies: Optional[PolicySet] = None, eager: bool = False):
     """Batched fixed-T runner: run(params (S,), addrs (S, N, T), gaps
-    (S, N, T)) -> metrics dict of (S, N) tensors."""
+    (S, N, T)) -> metrics dict of (S, N) tensors. ``eager``: see
+    :func:`run_steps`."""
     def run(p: FamParams, addrs, gaps):
         S, N, T = addrs.shape
         if N != num_nodes:
@@ -399,7 +521,7 @@ def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
         warm = warm[:, None].expand(T, S)
         live = torch.ones((T, S), dtype=torch.bool, device=dev)
         return _simulate(cfg, num_nodes, p, addrs, gaps, warm, live,
-                         pad_sets, pad_ways, policies)
+                         pad_sets, pad_ways, policies, eager)
 
     return run
 

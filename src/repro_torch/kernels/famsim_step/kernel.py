@@ -1,8 +1,9 @@
 """CUDA wrapper for the fused per-event DRAM-cache step.
 
 :func:`fused_cache_step` launches ``csrc/famsim_step.cu`` — one launch per
-event for every lane (system x node), one warp per lane — on CUDA tensors,
-and runs the plain version (:func:`ref.cache_step_ref`) on CPU tensors.
+event for every lane (system x node), one warp per lane that stages the
+event's set rows in shared memory — on CUDA tensors, and runs the plain
+version (:func:`ref.cache_step_ref`) on CPU tensors.
 It replaces the TPU kernel ``fused_cache_step`` of
 ``repro.kernels.famsim_step.kernel``.
 
@@ -24,7 +25,26 @@ MODES = {"lru": 0, "srrip": 1}
 
 _entry = nvcc.CudaEntry(SOURCE, "famsim_cache_step",
                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_shared_entry = nvcc.CudaEntry(SOURCE, "famsim_cache_step_shared",
+                               [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 2)
 build = _entry.build
+_shared_ok = set()
+
+
+def _check_shared(dev, C, P, w_pad):
+    """Raise if a launch with these shapes needs more shared memory than
+    a block may opt in to on ``dev`` (checked once per shape)."""
+    key = (dev.index, C, P, w_pad)
+    if key not in _shared_ok:
+        need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+        with torch.cuda.device(dev):
+            _shared_entry(C, P, w_pad, ctypes.byref(need), ctypes.byref(limit))
+        if need.value > limit.value:
+            raise ValueError(
+                f"fused_cache_step needs {need.value} B of shared memory per "
+                f"lane (C={C}, P={P}, ways_pad={w_pad}); the device allows "
+                f"{limit.value} B")
+        _shared_ok.add(key)
 
 
 def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
@@ -78,6 +98,7 @@ def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
     if n_lanes == 0:
         return hit, probe_hits
     s_pad, w_pad = tags.shape[-2:]
+    _check_shared(dev, C, P, w_pad)
     _entry(tags.data_ptr(), lru.data_ptr(), stamp.data_ptr(),
            fill_blocks.data_ptr(), fill_enable.data_ptr(),
            demand_block.data_ptr(), demand_enable.data_ptr(),

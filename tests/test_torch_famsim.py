@@ -9,8 +9,14 @@ bit today: the port mirrors XLA's sequential cumsum order.)
 
 Also: a padded sweep over three block sizes, a mid-run hand-over (a JAX
 state taken after k events is carried across with ``from_numpy`` and
-both sides continue), and the golden values ``chip_smoke.py`` holds the
+both sides continue), the strict scheduler and the static adaptation
+policy over the whole simulator, the event-loop runner (``run_steps``:
+windows of in-place steps, a padded last window) against JAX and against
+a plain functional loop, and the golden values ``chip_smoke.py`` holds the
 card's run against. Regenerate them with ``python tests/test_torch_famsim.py``.
+On the CPU the runner steps through its windows; on the card it
+replays them from a CUDA graph (``chip_smoke.py`` holds the two, and the
+``torch`` backend, bit for bit).
 """
 import json
 import sys
@@ -81,6 +87,93 @@ def test_build_sim_matches_reference(replacement):
         _assert_metrics({k: np.asarray(v)[i] for k, v in jout.items()},
                         {k: v.numpy() for k, v in tout.items()},
                         err=f"{replacement} {f}")
+
+
+# policy combinations beyond lru/srrip x fifo/wfq/token_bucket:
+# (PolicySet fields, SimFlags fields); sample_interval 64 lets adaptation fire
+POLICY_CASES = {
+    "strict": (dict(scheduler="strict"), {}),
+    "static": (dict(adaptation="static"), {}),
+    "srrip_strict_bw_adapt_wfq": (dict(replacement="srrip", scheduler="strict"),
+                                  dict(bw_adapt=True, wfq=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POLICY_CASES))
+def test_policy_sets_match_reference(case):
+    """build_sim against the JAX sweep for the strict scheduler, the static
+    adaptation policy, and srrip + strict under bw_adapt and wfq."""
+    fields, flag_fields = POLICY_CASES[case]
+    addrs, gaps = system_traces(WL, 300, 4)
+    jcfg = JFamConfig(sample_interval=64)
+    jps, jflags = JPolicySet(**fields), jfam.SimFlags(**flag_fields)
+    jp = j_stack_params([JFamParams.of(jcfg, jflags, jps)])
+    jout = jfam.sweep(jcfg, jp, None, addrs[None], gaps[None], policies=jps)
+    run = tfam.build_sim(FamConfig(sample_interval=64), tfam.SimFlags(**flag_fields),
+                         N, policies=PolicySet(**fields), device="cpu")
+    tout = run(addrs, gaps)
+    _assert_metrics({k: np.asarray(v)[0] for k, v in jout.items()},
+                    {k: v.numpy() for k, v in tout.items()}, err=case)
+
+
+def _runner_inputs(cfg, flags, T, seed):
+    """(step, per-node params, initial carry, events) of build_sim's
+    program for one system, for driving ``run_steps`` directly."""
+    addrs, gaps = system_traces(WL, T, seed)
+    p = tfam._per_node(stack_params([FamParams.of(cfg, flags, device="cpu")]))
+    events = (torch.from_numpy(addrs[None].astype(np.int32)),
+              torch.from_numpy(gaps[None]).float() / p.cores_per_node[..., None],
+              (torch.arange(T) >= int(T * 0.2))[:, None],
+              torch.ones((T, 1), dtype=torch.bool))
+    return tfam._make_step(cfg, N), p, tfam._init_carry(cfg, p, N), events
+
+
+def _event(events, i):
+    addrs, gaps, warm, live = events
+    return addrs[..., i], gaps[..., i], warm[i, :, None], live[i, :, None]
+
+
+def test_window_runner_matches_reference():
+    """run_steps over T = 400 in windows of 64 (the last padded with 48
+    dead events) matches the JAX reference."""
+    jout = jfam.simulate(JFamConfig(), jfam.SimFlags(), WL, T, seed=0)
+    step, p, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), T, 0)
+    nodes, _ = tfam.run_steps(step, p, carry, *events, window=64)
+    _assert_metrics(jout, {k: v[0].numpy() for k, v in tfam._metrics(nodes, p).items()})
+
+
+@pytest.mark.parametrize("window", [7, 150, 200])
+def test_window_runner_equals_functional_loop(window):
+    """Windows of in-place steps, the last padded with dead events when
+    ``window`` does not divide T, leave every carry tensor bit-identical to
+    the functional loop ``carry = step(p, carry, event)``."""
+    T_short = 150
+    cfg = FamConfig(sample_interval=32)
+    step, p, carry, events = _runner_inputs(
+        cfg, tfam.SimFlags(bw_adapt=True, wfq=True), T_short, 5)
+    got = tfam.run_steps(step, p, carry, *events, window=window)
+    for i in range(T_short):
+        carry = step(p, carry, _event(events, i))
+    for a, b in zip(tfam._leaves(got), tfam._leaves(carry)):
+        assert torch.equal(a, b)
+
+
+def test_in_place_step_keeps_storage_and_dead_events_are_no_ops():
+    """The in-place step keeps every carry buffer's storage from event to
+    event (what a captured graph relies on), and an event that is neither
+    live nor warm (the padding) changes no carry tensor."""
+    step, p, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), 40, 6)
+    buf = tfam._clone(carry)
+    ptrs = [t.data_ptr() for t in tfam._leaves(buf)]
+    step_ = tfam._in_place(step)
+    for i in range(40):
+        step_(p, buf, _event(events, i))
+        assert [t.data_ptr() for t in tfam._leaves(buf)] == ptrs
+    before = tfam._clone(buf)
+    dead = tuple(torch.zeros_like(x) for x in _event(events, 0))
+    step_(p, buf, dead)
+    for a, b in zip(tfam._leaves(buf), tfam._leaves(before)):
+        assert torch.equal(a, b)
 
 
 def test_padded_sweep_over_block_sizes():
