@@ -10,7 +10,8 @@ exit code != 0):
 1. the card's name and power limit; build the five CUDA kernels from
    ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
    sm_90a); HGMMA (wgmma) in the SASS of the tensor-core attention kernel
-   at both its head dims (cuobjdump);
+   at both its head dims and UTMALDG (TMA loads) in every instantiation of
+   the paged attention kernel (cuobjdump);
 2. ``fused_cache_step`` vs its plain version on the card: random op streams
    over padded geometries (effective sets/ways below the padding, ways
    above 32 too), streams whose fills, demand and probes all fall into 1
@@ -22,9 +23,14 @@ exit code != 0):
    versions on the card: lookups exact on random tags and a populated
    32 x 16 state (K 1..260), gathers exact in bf16 at the 3 MB expert-slab
    width and in f32 at the 64 KB KV-block width, attention within
-   PAGED_TOL at Hq 32, Hkv 8, D 64, T 16, NB 256 on strided views of the
-   fast tier with lengths that end mid-block; device time per launch, the
-   plain version's time, the bound and the library call's time;
+   PAGED_TOL (f32) / PAGED_TOL_BF16 at Hq 32, Hkv 8, D 64, T 16, NB 256 on
+   strided views of the fast tier at lengths 4,003, 3,001, 17, 4,096, 1 and
+   0 (exact zeros), at G 6 and G 8 / D 128, and on views one element past
+   16-byte alignment (the cp.async and element copies); device time per
+   launch, the plain version's time, the bound and the library call's
+   time; paged attention timed in f32 and bf16 with every kernel a call
+   launches counted (one), and a 1-element add_ (the card's floor for a
+   small kernel) beside cache_lookup;
 4. ``flash_attention`` vs its plain version on the card, both kernels
    (the tensor-core kernel for bf16 at D 64 / 128, the CUDA-core kernel
    for the rest): the shapes of ``tests/test_kernels.py`` and lengths that
@@ -448,28 +454,44 @@ def build_all():
     return nvcc_build_all([ROOT / src for src, _ in KERNELS.values()])
 
 
-def tensor_core_sass():
-    """HGMMA (wgmma) instructions in the SASS of each instantiation of the
-    tensor-core attention kernel, by head dim, from cuobjdump on the built
-    library; every instantiation must have some."""
-    from repro_torch.kernels.flash_attention.kernel import TC_DIMS
+def _sass_counts(source, kernel, mnemonic):
+    """{function: count of ``mnemonic``} over the functions whose name holds
+    ``kernel`` in the SASS of ``source``'s built library (cuobjdump)."""
     from repro_torch.kernels.nvcc import library_path, nvcc
-    lib = library_path(ROOT / KERNELS["flash_attention"][0])
+    lib = library_path(ROOT / source)
     sass = subprocess.run([str(Path(nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     found, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            # the mangled template argument: ...wgmma_kernelILi64EE...
-            name = fn.split("flash_attention_wgmma_kernelILi")[1].split("E")[0] \
-                if "flash_attention_wgmma_kernel" in fn else None
+            name = fn if kernel in fn else None
             if name is not None:
                 found[name] = 0
-        elif name in found and "HGMMA" in line:
+        elif name is not None and mnemonic in line:
             found[name] += 1
+    return found
+
+
+def tensor_core_sass():
+    """HGMMA (wgmma) instructions in the SASS of each instantiation of the
+    tensor-core attention kernel, by head dim; every instantiation must
+    have some."""
+    from repro_torch.kernels.flash_attention.kernel import TC_DIMS
+    counts = _sass_counts(KERNELS["flash_attention"][0], "flash_attention_wgmma_kernel", "HGMMA")
+    # the mangled template argument: ...wgmma_kernelILi64EE...
+    found = {fn.split("flash_attention_wgmma_kernelILi")[1].split("E")[0]: n
+             for fn, n in counts.items()}
     check(set(found) == {str(d) for d in TC_DIMS} and all(found.values()),
           f"HGMMA in the tensor-core kernel's instantiations: {found}")
+    return found
+
+
+def paged_tma_sass():
+    """UTMALDG (TMA load) instructions in the SASS of each instantiation of
+    the paged attention kernel; every instantiation must have some."""
+    found = _sass_counts(KERNELS["paged_attention"][0], "paged_attention_kernel", "UTMALDG")
+    check(found and all(found.values()), f"UTMALDG in the paged attention kernel: {found}")
     return found
 
 
@@ -486,7 +508,8 @@ def _bound(nbytes, flops=0.0, flops_per_s=F32_FLOPS):
 
 def lookup_vs_plain(torch, gen):
     """cache_lookup: exact on random tags and on a populated 32 x 16 state
-    (the decode's geometry), K from 1 to 260; timed at K = 256."""
+    (the decode's geometry), K from 1 to 260; timed at K = 256, beside the
+    device time of a 1-element add_ (the card's floor for a small kernel)."""
     from repro_torch.kernels.cache_lookup import (cache_lookup, cache_lookup_ref,
                                                   set_index_ref)
     dev = torch.device(DEVICE)
@@ -519,7 +542,9 @@ def lookup_vs_plain(torch, gen):
     rows = np.mean([torch.unique(set_index_ref(x, sets)).numel() for x in qsets])
     nbytes = 256 * 4 + rows * ways * 4 + 256 * (1 + 4 + 4)
     bound_ms, bound_by = _bound(nbytes)
+    one = torch.zeros(1, device=dev)
     return dict(max_abs_err=max_err,
+                floor_ms=_device_ms(torch, lambda: one.add_(1.0), 200),
                 ms=_device_ms(torch, lambda: cache_lookup(populated, q()), 200,
                               "cache_lookup_kernel"),
                 plain_ms=_time(torch, lambda: cache_lookup_ref(populated, q()), 50),
@@ -568,48 +593,124 @@ def _fast_pool(torch, cgen, dtype):
     return fast, fast[:, 0], fast[:, 1]
 
 
+def _attention_bytes(length, itemsize):
+    """Bytes one decode step's paged attention must move: q read and the
+    output written, each live token's K and V rows of every kv head read
+    once, the live table entries and the length."""
+    live = -(-length // KV_BLOCK)
+    return (2 * KV_HQ * KV_D * itemsize + length * KV_HKV * KV_D * itemsize * 2
+            + live * 4 + 4)
+
+
 def attention_vs_plain(torch, gen):
     """paged_attention: within PAGED_TOL (f32) and PAGED_TOL_BF16 (bf16) at
-    the decode's widths on strided views, lengths mid-block; timed at one
-    decode step's shape, cycling over 4 fast tiers (128 MB, past L2)."""
+    the decode's widths on strided views of the fast tier, at lengths that
+    end mid-block, fill the table, are 1 and are 0 (exact zeros, as the TPU
+    kernel gives); at G 6 (internlm2-20b) and G 8 / D 128 (yi-9b); and on
+    views one element past 16-byte alignment, which take the cp.async (f32)
+    and element (bf16) copies instead of TMA. Each check is one launch.
+    Timed at one decode step's shape, f32 and bf16, cycling over 4 fast
+    tiers (128 MB in f32, past L2), with every kernel a call launches
+    counted; the launch plan and the time at length 0 (what the design
+    costs with nothing to read) are printed beside."""
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
     dev = torch.device(DEVICE)
     cgen = torch.Generator(device=dev).manual_seed(2)
     nb = KV_CONTEXT // KV_BLOCK
     max_err = 0.0
-    for dtype, tol in ((torch.float32, PAGED_TOL), (torch.bfloat16, PAGED_TOL_BF16)):
-        _, k, v = _fast_pool(torch, cgen, dtype)
-        lengths = torch.tensor([4003, 3001, 17, KV_CONTEXT], dtype=torch.int32, device=dev)
-        table = torch.stack([torch.randperm(KV_FAST, generator=gen)[:nb]
-                             for _ in range(4)]).to(dev, torch.int32)
-        q = torch.randn((4, KV_HQ, KV_D), generator=cgen, device=dev, dtype=dtype)
+
+    def compare(q, k, v, table, lengths, tol, what):
+        before = paged_attention.launches
         got, want = paged_attention(q, k, v, table, lengths), paged_attention_ref(q, k, v, table, lengths)
         torch.cuda.synchronize()
+        check(paged_attention.launches == before + 1, f"paged_attention ({what}) did not launch once")
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"paged_attention != plain ({dtype}): max abs err {err}")
+              f"paged_attention != plain ({what}): max abs err {err}")
+        for i in (lengths == 0).nonzero().flatten().tolist():
+            check(bool((got[i] == 0).all()), f"paged_attention ({what}): length 0 is not exact zeros")
+        return err
+
+    for dtype, tol in ((torch.float32, PAGED_TOL), (torch.bfloat16, PAGED_TOL_BF16)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        fast, k, v = _fast_pool(torch, cgen, dtype)
+        check(pk.copy_path(k, v)[0] == "tma", f"the fast tier's views ({name}) do not take TMA")
+        lengths = torch.tensor([4003, 3001, 17, KV_CONTEXT, 0, 1], dtype=torch.int32, device=dev)
+        table = torch.stack([torch.randperm(KV_FAST, generator=gen)[:nb]
+                             for _ in range(len(lengths))]).to(dev, torch.int32)
+        q = torch.randn((len(lengths), KV_HQ, KV_D), generator=cgen, device=dev, dtype=dtype)
+        err = compare(q, k, v, table, lengths, tol, f"{name}, decode widths")
         if dtype == torch.float32:
             max_err = err
-    pools = [_fast_pool(torch, cgen, torch.float32) for _ in range(4)]
+        # one element past 16-byte alignment: cp.async (f32, 4 bytes) or element copies (bf16)
+        flat = torch.empty(fast.numel() + 1, device=dev, dtype=dtype)
+        off = flat[1:].view(fast.shape)
+        off.copy_(fast)
+        path = pk.copy_path(off[:, 0], off[:, 1])[0]
+        check(path == ("cp_async" if dtype == torch.float32 else "element"),
+              f"a misaligned view ({name}) takes the {path} path")
+        err = compare(q, off[:, 0], off[:, 1], table, lengths, tol, f"{name}, {path} copies")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        del flat, off, fast
+        for hq, hkv, d in ((48, 8, 128), (32, 4, 128)):   # G 6 (internlm2-20b), G 8 / D 128 (yi-9b)
+            pool = torch.randn((KV_FAST // 2, 2, KV_BLOCK, hkv, d), generator=cgen, device=dev,
+                               dtype=dtype)
+            lengths = torch.tensor([4003, 1], dtype=torch.int32, device=dev)
+            table = torch.stack([torch.randperm(KV_FAST // 2, generator=gen)[:nb]
+                                 for _ in range(2)]).to(dev, torch.int32)
+            q = torch.randn((2, hq, d), generator=cgen, device=dev, dtype=dtype)
+            err = compare(q, pool[:, 0], pool[:, 1], table, lengths, tol,
+                          f"{name}, G {hq // hkv}, D {d}")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            del pool
     length = KV_PROMPTS[0] + 3
     lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
     table = torch.randperm(KV_FAST, generator=gen)[:nb].to(dev, torch.int32)[None]
-    q = torch.randn((1, KV_HQ, KV_D), generator=cgen, device=dev)
-    nxt = itertools.cycle(pools).__next__
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pools = [_fast_pool(torch, cgen, dtype) for _ in range(4)]
+        q = torch.randn((1, KV_HQ, KV_D), generator=cgen, device=dev, dtype=dtype)
+        nxt = itertools.cycle(pools).__next__
 
-    def call(fn):
-        _, k, v = nxt()
-        return fn(q, k, v, table, lengths)
-    live = -(-length // KV_BLOCK)
-    nbytes = (2 * KV_HQ * KV_D * 4 + length * KV_HKV * KV_D * 4 * 2 + live * 4 + 4)
-    bound_ms, bound_by = _bound(nbytes, 4.0 * KV_HQ * KV_D * length)
-    return dict(max_abs_err=max_err,
-                ms=_device_ms(torch, lambda: call(paged_attention), 100,
-                              "paged_attention_kernel"),
-                plain_ms=_time(torch, lambda: call(paged_attention_ref), 20),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        def call(fn, ln=lengths):
+            _, k, v = nxt()
+            return fn(q, k, v, table, ln)
+        with _profiled(torch) as prof:
+            for _ in range(100):
+                call(paged_attention)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(len(events) == 100 and all("paged_attention_kernel" in e.name for e in events),
+              f"a paged_attention call launched {len(events) / 100} kernels: "
+              f"{sorted({e.name[:60] for e in events})}")
+        isz = torch.tensor([], dtype=dtype).element_size()
+        nbytes = _attention_bytes(length, isz)
+        timed[dtype] = dict(
+            ms=_device_ms(torch, lambda: call(paged_attention), 100, "paged_attention_kernel"),
+            call_ms=sum(e.time_range.elapsed_us() for e in events) / 100 / 1e3,
+            zero_ms=_device_ms(torch, lambda: call(paged_attention, zero), 100,
+                               "paged_attention_kernel"),
+            plain_ms=_time(torch, lambda: call(paged_attention_ref), 20),
+            bytes=nbytes, bound=_bound(nbytes, 4.0 * KV_HQ * KV_D * length),
+            plan=pk.plan(KV_HQ // KV_HKV, KV_D, KV_BLOCK, KV_HKV, dtype))
+        del pools
+    f32, bf16 = timed[torch.float32], timed[torch.bfloat16]
+    for dtype, t in timed.items():
+        print(f"paged_attention {str(dtype).split('.')[1]} @ length {length}: "
+              f"{t['ms'] * 1e3:.2f} us device time/call, 1 kernel a call "
+              f"({t['call_ms'] * 1e3:.2f} us all kernels), bound {t['bound'][0] * 1e3:.4f} us "
+              f"({t['bytes']} B, {t['bound'][1]}), plain {t['plain_ms'] * 1e3:.1f} us, "
+              f"at length 0 {t['zero_ms'] * 1e3:.2f} us; plan {t['plan']}", flush=True)
+    return dict(max_abs_err=max_err, ms=f32["ms"], plain_ms=f32["plain_ms"],
+                bound_ms=f32["bound"][0], bound_by=f32["bound"][1], library_ms=None,
+                bf16_ms=bf16["ms"], bf16_bound_ms=bf16["bound"][0],
                 shape=f"B=1, Hq {KV_HQ}, Hkv {KV_HKV}, D {KV_D}, T {KV_BLOCK}, "
-                      f"NB {nb}, length {length}, f32 strided views", bytes=nbytes)
+                      f"NB {nb}, length {length}, f32 strided views", bytes=f32["bytes"])
 
 
 def tiering_kernels_vs_plain(torch, gen):
@@ -622,6 +723,10 @@ def tiering_kernels_vs_plain(torch, gen):
               f"plain {r['plain_ms'] * 1e3:.1f} us/call, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bytes']:.0f} B, {r['bound_by']}), library {lib}, "
               f"max abs err {r['max_abs_err']}", flush=True)
+    print(f"launch floor: a 1-element add_ takes {out['cache_lookup']['floor_ms'] * 1e3:.2f} us "
+          f"device time beside cache_lookup's {out['cache_lookup']['ms'] * 1e3:.2f} us; "
+          f"paged_attention bf16 {out['paged_attention']['bf16_ms'] * 1e3:.2f} us, bound "
+          f"{out['paged_attention']['bf16_bound_ms'] * 1e3:.4f} us", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -1274,6 +1379,9 @@ def main(argv=None):
     hgmma = tensor_core_sass()
     print("HGMMA instructions in the SASS of flash_attention_wgmma_kernel: " +
           ", ".join(f"D {d}: {c}" for d, c in sorted(hgmma.items())), flush=True)
+    utmaldg = paged_tma_sass()
+    print(f"UTMALDG instructions in the SASS of paged_attention_kernel: {sum(utmaldg.values())} "
+          f"in {len(utmaldg)} instantiations", flush=True)
     gen = torch.Generator().manual_seed(0)
     max_err, timing = phases.run("kernel_vs_plain", kernel_vs_plain, torch, gen)
     tiering = phases.run("tiering_kernels_vs_plain", tiering_kernels_vs_plain, torch, gen)

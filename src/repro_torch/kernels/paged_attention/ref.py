@@ -2,8 +2,13 @@
 
 Counterpart of ``repro.kernels.paged_attention.ref``: gather the blocks,
 one einsum for the scores, mask, softmax, one einsum for the values, all
-in float32. The CUDA kernel (:mod:`repro_torch.kernels.paged_attention.kernel`)
-takes the softmax online, block by block, so the two agree to rounding.
+in float32. Masked positions then weigh exactly 0, as in the TPU kernel
+(``repro.kernels.paged_attention.kernel``), so a sequence of length 0
+gives zeros (``repro.kernels.paged_attention.ref`` gives the mean of V
+there); at any other length this changes nothing, since a masked
+position's weight is already 0. The CUDA kernel
+(:mod:`repro_torch.kernels.paged_attention.kernel`) takes the softmax
+online, block by block, so the two agree to rounding.
 """
 from __future__ import annotations
 
@@ -33,6 +38,6 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, lengths):
     pos = torch.arange(NB * T, device=q.device)
     mask = pos[None, :] < lengths[:, None]           # (B, S)
     scores = torch.where(mask[:, None, None, :], scores, -1e30)
-    p = torch.softmax(scores, dim=-1)
+    p = torch.where(mask[:, None, None, :], torch.softmax(scores, dim=-1), 0.0)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.to(torch.float32))
     return out.reshape(B, Hq, D).to(q.dtype)

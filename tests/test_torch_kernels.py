@@ -30,7 +30,9 @@ from repro_torch.kernels.cache_lookup import (cache_lookup, cache_lookup_ref,
 from repro_torch.kernels.paged_attention import (decode_attention,
                                                  paged_attention,
                                                  paged_attention_ref)
-from repro_torch.kernels.paged_attention.kernel import shared_bytes, split_plan
+from repro_torch.kernels.paged_attention.kernel import (MAX_SHARED_BYTES, cluster_plan,
+                                                        cluster_size, copy_path, layout,
+                                                        shared_bytes)
 
 I32_MAX = np.iinfo(np.int32).max
 
@@ -161,18 +163,77 @@ def test_paged_attention_strided_views_and_mid_block_lengths():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
+# clusters of each size an H100 80GB HBM3 held at once at the tiered decode's
+# shape (cudaOccupancyMaxActiveClusters, one CTA an SM), as chip_smoke.py
+# prints them
+H100_HELD = {8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
 def test_paged_attention_shared_memory_and_split_plan():
-    """At the tiered-KV decode widths (G 4, D 64, T 16) a block's shared
-    memory stays under the 48 KB that needs no opt-in, and the 8
-    (sequence, kv head) pairs of a 256-block table split into 32 chunks of
-    8 blocks on 132 SMs; every plan covers the table."""
-    assert shared_bytes(4, 64, 16, 4) == 1024 + 4 * (16 * 272 + 16 * 256 + 256 + 1024 + 32)
-    assert shared_bytes(4, 64, 16, 2) < shared_bytes(4, 64, 16, 4) < 48 * 1024
-    assert split_plan(8, 256, 132) == (8, 32)
-    assert split_plan(1, 0, 132) == (1, 1)
-    for pairs, nb in ((1, 1), (3, 7), (8, 251), (1024, 256), (2, 5000)):
-        chunk, splits = split_plan(pairs, nb, 132)
-        assert chunk * splits >= nb > chunk * (splits - 1) and splits <= 65535
+    """The source's plan, through its Python mirrors: at the tiered-KV decode
+    widths (G 4, D 64, T 16) a CTA is 8 consumer warps and a producer warp
+    over a ring of 16 one-block stages (128 KB in f32), padded to 116 KB in
+    bf16 so that no two CTAs share an SM; every width of the dense configs
+    and of the CPU tests fits the 227 KB a block may use. On the H100's
+    cluster counts the decode's 8 pairs take clusters of 9 (one wave), one
+    pair 16 and 1,024 pairs the portable 8; every plan covers the table in
+    at most `cluster` contiguous chunks."""
+    f32 = layout(4, 64, 16, 4)
+    assert (f32["stages"], f32["walkers"], f32["warps"], f32["threads"]) == (16, 8, 8, 288)
+    assert f32["ring"] == 16 * 2 * 16 * 256 and f32["total"] == 138480
+    assert shared_bytes(4, 64, 16, 2) == 116 * 1024
+    assert layout(8, 128, 16, 4)["stages"] == 8 and layout(8, 128, 16, 4)["walkers"] == 4
+    assert layout(8, 256, 16, 4)["stages"] == 4
+    widths = [(4, 64, 16), (6, 128, 16), (8, 128, 16), (8, 256, 16)]
+    widths += [(G, D, T) for G in (1, 2, 3, 4) for D in (8, 16, 32, 64) for T in (8, 16, 32)]
+    for G, D, T in widths:
+        for isz in (2, 4):
+            assert shared_bytes(G, D, T, isz) <= MAX_SHARED_BYTES, (G, D, T, isz)
+    assert cluster_size(8, H100_HELD) == 9
+    assert cluster_size(1, H100_HELD) == 16 and cluster_size(1024, H100_HELD) == 8
+    assert cluster_plan(251, 9) == [(28 * r, 28) for r in range(8)] + [(224, 27)]
+    assert cluster_plan(0, 16) == [(0, 0)] * 16
+    for pairs in (1, 2, 7, 8, 9, 15, 16, 64, 1024):
+        C = cluster_size(pairs, H100_HELD)
+        for nb in (0, 1, 7, 251, 256, 5000):
+            plan = cluster_plan(nb, C)
+            assert len(plan) == C
+            covered = [j for start, n in plan for j in range(start, start + n)]
+            assert covered == list(range(nb)), (pairs, nb)
+
+
+def _strided_views(dtype, D=64, offset=0, P=6, T=16, Hkv=8):
+    """K and V as the interleaved halves of one (P, 2, T, Hkv, D) pool,
+    ``offset`` elements past the start of its storage."""
+    flat = torch.zeros(offset + P * 2 * T * Hkv * D, dtype=dtype)
+    fast = flat[offset:].view(P, 2, T, Hkv, D)
+    return fast[:, 0], fast[:, 1]
+
+
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    (torch.float32, 64, 0, ("tma", 16)),      # the tiered fast tier's views
+    (torch.bfloat16, 64, 0, ("tma", 16)),
+    (torch.float32, 256, 0, ("tma", 16)),
+    (torch.float32, 64, 1, ("cp_async", 4)),  # one element past 16 bytes
+    (torch.bfloat16, 64, 1, ("element", 0)),  # two bytes past 16
+    (torch.bfloat16, 60, 0, ("cp_async", 8)),  # 120-byte rows
+    (torch.float32, 512, 0, ("cp_async", 16)),  # rows past a TMA box
+])
+def test_paged_attention_copy_path(dtype, D, offset, want):
+    """The copy path the wrapper hands the kernel, from the views' layout."""
+    k, v = _strided_views(dtype, D, offset)
+    assert not k.is_contiguous() and copy_path(k, v) == want
+
+
+def test_paged_attention_zero_length_matches_pallas():
+    """A sequence of length 0 gives zeros in the plain version, as in the
+    Pallas kernel (and the CUDA kernel); the other sequences are as before."""
+    args = _attention_inputs(np.random.default_rng(5), 3, 8, 2, 32, 16, 20, 4)
+    args[4][:] = [0, 50, 0]
+    want = np.asarray(j_paged_attention(*[jnp.asarray(a) for a in args], interpret=True))
+    got = paged_attention(*[torch.from_numpy(a) for a in args]).numpy()
+    assert not got[0].any() and not got[2].any() and not want[0].any()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
