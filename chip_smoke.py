@@ -4,10 +4,10 @@
     python3 chip_smoke.py            # the checks below, 5-10 min on an H100
     python3 chip_smoke.py --profile  # also the profiler's table of the grid's ops
 
-Phases, in this order (each prints its seconds; any failed check raises,
-exit code != 0):
+Phases, in order (each prints its seconds; any failed check raises, exit
+code != 0):
 
-1. the card's name and power limit; build the five CUDA kernels from
+1. the card's name and power limit; build the six CUDA sources from
    ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
    sm_90a); HGMMA (wgmma) in the SASS of the tensor-core attention kernel
    at both its head dims and UTMALDG (TMA loads) in every instantiation of
@@ -31,6 +31,23 @@ exit code != 0):
    time; paged attention timed in f32 and bf16 with every kernel a call
    launches counted (one), and a 1-element add_ (the card's floor for a
    small kernel) beside cache_lookup;
+3b. ``tier_access`` (the chain and copy kernels of one
+   ``TieredBlockPool.access``) vs the plain loop on the card: (a) the
+   tiered-KV stream (K 256 over 256 blocks, fast 512 in 32 x 16, f32, 4
+   steps: misses, then hits), (b) sliding then random ids (K 96, 512
+   blocks, fast 64, f32 -> bf16: evictions and slots filled twice in one
+   access; the routes swap states mid-run), (c) the expert router of phase
+   6 (bf16, K 8, fast 192: prefetches filled and valid predictions not
+   filled), (d) and (e) (b)'s ids on rows the 16-byte copies cannot take
+   (4,099 f32 a row; a slow tier 4 bytes past alignment, f32 -> bf16), so
+   each of the copy kernel's four kinds runs; through a ``"torch"`` and a
+   ``"cuda"`` pool on one slow tier, the whole TierState (fast tier
+   included) and the slots bit for bit after every access; the kernel
+   route under ``set_sync_debug_mode("error")`` (no host sync); misses,
+   evictions, prefetches filled and not filled; then timed at stream (a):
+   chain and copy us a launch (all hits, all misses; every kernel record
+   present), SM cycles an id, the plain loop's ms a call and the byte
+   bounds;
 4. ``flash_attention`` vs its plain version on the card, both kernels
    (the tensor-core kernel for bf16 at D 64 / 128, the CUDA-core kernel
    for the rest): the shapes of ``tests/test_kernels.py`` and lengths that
@@ -47,14 +64,17 @@ exit code != 0):
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
    4,000 and 3,000 tokens, 4 decode steps; every output within 3e-4 of
-   dense attention over the raw K/V; one ``cache_lookup`` and one
-   ``paged_attention`` launch per decode step; hit rate, prefetches, wall
-   per decode step, decode tokens/s; a profiled decode step (device busy
-   share, kernels per step);
+   dense attention over the raw K/V; one ``tier_access``, one
+   ``cache_lookup`` and one ``paged_attention`` launch per decode step;
+   hit rate, prefetches, wall per decode step, decode tokens/s; then 20
+   warm calls of one (request, layer) profiled: device busy share,
+   hand-written launches a call (from the launch counters, each of their
+   kernels' records present) and device kernels a call;
 6. expert tiering at granite-moe-1b-a400m (24 layers x 32 experts, top-8,
    3 MB bf16 slabs, 192 fast slabs in 12 sets x 16 ways): 96 gathers from a
-   seeded skewed router, every slab exact; one ``cache_lookup`` and one
-   ``block_gather`` launch per gather; hit rate, gathers/s, GB/s;
+   seeded skewed router, every slab exact; one ``tier_access``, one
+   ``cache_lookup`` and one ``block_gather`` launch per gather; hit rate,
+   gathers/s, GB/s;
 7. serving granite-3-2b at its published widths (40 layers, d_model
    2048, Hq 32, Hkv 8, D 64, SwiGLU 8192, vocab 49155; f32 params, bf16
    compute, random weights from a seed): ``Engine.generate`` on 4 prompts
@@ -116,6 +136,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "src/repro/kernels/famsim_step/kernel.py:138"),
     "cache_lookup": ("src/repro_torch/kernels/cache_lookup/csrc/cache_lookup.cu",
                      "src/repro/kernels/cache_lookup/kernel.py:40"),
+    "tier_access": ("src/repro_torch/kernels/cache_lookup/csrc/tier_access.cu",
+                    "src/repro/kernels/cache_lookup/kernel.py:40 with "
+                    "src/repro/core/tiering.py:117 (TieredBlockPool.access)"),
     "block_gather": ("src/repro_torch/kernels/block_gather/csrc/block_gather.cu",
                      "src/repro/kernels/block_gather/kernel.py:24"),
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
@@ -162,6 +185,9 @@ SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
 SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|, rtol 0.05
 PROFILE_MARGIN_S = 0.1         # idle seconds at each end of a profiler window
+LEAD_IN, LEAD_IN_CYCLES = 16, 1_000_000   # spin kernels opening a window, ~0.5 ms each
+LEAD_IN_KERNEL = "spin_kernel"            # torch.cuda._sleep's kernel
+lead_in_lost = []              # lead-in records each profiler window lost
 
 
 def check(ok, msg):
@@ -368,18 +394,38 @@ def kernel_vs_plain(torch, gen):
 
 @contextlib.contextmanager
 def _profiled(torch):
-    """torch.profiler (CPU and CUDA) over the block, the card idle for
-    PROFILE_MARGIN_S at each end of the window: the profiler drops kernel
-    records whose device timestamps, taken to the host's clock, fall just
-    outside its window, and windows that began or ended on a launch lost
-    some (8 of 100, 43 of 200, 1 of 100 in three runs on the card)."""
+    """torch.profiler (CPU and CUDA) over the block. The profiler drops
+    kernel records whose device timestamps, taken to the host's clock,
+    fall outside its window (Kineto counts them "out of range"): windows
+    that began or ended on a launch lost some (8 of 100, 43 of 200, 1 of
+    100 in three runs on the card), and windows opened after a long run of
+    unprofiled launches lost their first records whatever the kernel.
+    So the card idles PROFILE_MARGIN_S at each end of the window, and the
+    window opens with LEAD_IN spin kernels (``torch.cuda._sleep``) that
+    :func:`_device_events` leaves out; how many of them each window lost
+    goes to ``lead_in_lost``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_MARGIN_S)
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
         yield prof
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
+    from torch.autograd import DeviceType
+    kept = sum(e.device_type == DeviceType.CUDA and LEAD_IN_KERNEL in e.name
+               for e in prof.events())
+    check(kept > 0, f"the profiler kept none of the {LEAD_IN} lead-in kernels")
+    lead_in_lost.append(LEAD_IN - kept)
+
+
+def _device_events(prof):
+    """The kernel records of a _profiled window, its lead-in left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and LEAD_IN_KERNEL not in e.name]
 
 
 def _device_ms(torch, fn, n, kernel=None):
@@ -387,13 +433,12 @@ def _device_ms(torch, fn, n, kernel=None):
     kernel events (the host's work excluded): of the kernel whose name
     contains ``kernel`` (each call must launch it once), or of every kernel
     the call launches."""
-    from torch.autograd import DeviceType
     fn()
     with _profiled(torch) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = _device_events(prof)
     if kernel is not None:
         events = [e for e in events if kernel in e.name]
         check(len(events) == n, f"profiler saw {len(events)} of {n} {kernel} launches")
@@ -423,13 +468,13 @@ def _time(torch, fn, n):
 
 def _wrappers():
     from repro_torch.kernels.block_gather import block_gather
-    from repro_torch.kernels.cache_lookup import cache_lookup
+    from repro_torch.kernels.cache_lookup import cache_lookup, tier_access
     from repro_torch.kernels.famsim_step import fused_cache_step
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     return {"fused_cache_step": fused_cache_step, "cache_lookup": cache_lookup,
-            "block_gather": block_gather, "paged_attention": paged_attention,
-            "flash_attention": flash_attention}
+            "tier_access": tier_access, "block_gather": block_gather,
+            "paged_attention": paged_attention, "flash_attention": flash_attention}
 
 
 def reset_counts():
@@ -613,7 +658,6 @@ def attention_vs_plain(torch, gen):
     tiers (128 MB in f32, past L2), with every kernel a call launches
     counted; the launch plan and the time at length 0 (what the design
     costs with nothing to read) are printed beside."""
-    from torch.autograd import DeviceType
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
     dev = torch.device(DEVICE)
@@ -684,7 +728,7 @@ def attention_vs_plain(torch, gen):
             for _ in range(100):
                 call(paged_attention)
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = _device_events(prof)
         check(len(events) == 100 and all("paged_attention_kernel" in e.name for e in events),
               f"a paged_attention call launched {len(events) / 100} kernels: "
               f"{sorted({e.name[:60] for e in events})}")
@@ -729,6 +773,292 @@ def tiering_kernels_vs_plain(torch, gen):
           f"{out['paged_attention']['bf16_bound_ms'] * 1e3:.4f} us", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the tier access kernel vs the plain loop
+# --------------------------------------------------------------------------
+
+def _state_leaves(st, prefix=""):
+    """[(name, tensor)] of a TierState, nested states flattened."""
+    out = []
+    for name, x in zip(st._fields, st):
+        if isinstance(x, tuple):
+            out += _state_leaves(x, f"{prefix}{name}.")
+        else:
+            out.append((prefix + name, x))
+    return out
+
+
+def _same_state(torch, a, b, what):
+    """Every tensor of two TierStates bit for bit (raises otherwise)."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    check(len(la) == len(lb) == 19, f"{what}: {len(la)} / {len(lb)} state tensors")
+    raw = lambda x: x.reshape(-1).view({4: torch.int32, 2: torch.int16}[x.element_size()])
+    for (name, x), (_, y) in zip(la, lb):
+        check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(raw(x), raw(y)),
+              f"{what}: {name} differs between tier_access and the plain loop")
+
+
+def _expert_routing(torch, dev):
+    """MOE_TOKENS x MOE_LAYERS top-k expert sets from a seeded skewed
+    router: per layer a Zipf-like popularity over the experts in a seeded
+    order, so the hot experts repeat across tokens."""
+    rng = np.random.default_rng(4)
+    pop = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** 1.2
+    pop /= pop.sum()
+    order = [rng.permutation(MOE_EXPERTS) for _ in range(MOE_LAYERS)]
+    return [[torch.from_numpy(order[l][rng.choice(MOE_EXPERTS, MOE_TOP_K, replace=False,
+                                                  p=pop)].astype(np.int32)).to(dev)
+             for l in range(MOE_LAYERS)] for _ in range(MOE_TOKENS)]
+
+
+def _access_streams(torch, dev):
+    """The five streams of the access check: (name, pool arguments, slow
+    tier, id lists, the access at which the two routes swap states, the
+    fill copy's kind). (d) and (e) take (b)'s ids on rows that leave the
+    16-byte copies: rows of 4,099 float32 (byte copies) and a float32
+    slow tier one element past 16-byte alignment (element-wise bf16)."""
+    cgen = torch.Generator(device=dev).manual_seed(6)
+    nb = KV_CONTEXT // KV_BLOCK
+    elems = 2 * KV_BLOCK * KV_HKV * KV_D
+    pos = torch.arange(nb, dtype=torch.int32, device=dev)
+    kv_ids = [torch.where(pos < -(-(KV_PROMPTS[0] + s + 1) // KV_BLOCK), pos, 0)
+              for s in range(KV_STEPS)]
+    rng = np.random.default_rng(6)
+    small = [((np.arange(96) + 24 * i) % 512) if i < 6 else rng.integers(0, 512, 96)
+             for i in range(12)]
+    small = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in small]
+    routing = _expert_routing(torch, dev)
+    return [
+        ("a: tiered-KV, K 256, 256 blocks, fast 512 (32 x 16), f32",
+         dict(num_blocks=nb, fast_blocks=KV_FAST, block_elems=elems, page_span=16,
+              dtype=torch.float32),
+         torch.randn((nb, elems), generator=cgen, device=dev), kv_ids, None, "vector"),
+        ("b: sliding then random, K 96, 512 blocks, fast 64 (4 x 16), f32 -> bf16",
+         dict(num_blocks=512, fast_blocks=64, block_elems=4096, page_span=16,
+              dtype=torch.bfloat16),
+         torch.randn((512, 4096), generator=cgen, device=dev), small, 6, "bf16x4"),
+        ("c: expert router, K 8, 768 slabs of 3 MB, fast 192 (12 x 16), bf16",
+         dict(num_blocks=MOE_LAYERS * MOE_EXPERTS, fast_blocks=MOE_FAST, block_elems=MOE_SLAB,
+              page_span=MOE_EXPERTS, dtype=torch.bfloat16),
+         torch.randn((MOE_LAYERS * MOE_EXPERTS, MOE_SLAB), generator=cgen, device=dev,
+                     dtype=torch.bfloat16),
+         [layer * MOE_EXPERTS + experts for tok in routing
+          for layer, experts in enumerate(tok)], None, "vector"),
+        ("d: b's ids, rows of 4,099 f32 (16,396 B)",
+         dict(num_blocks=512, fast_blocks=64, block_elems=4099, page_span=16,
+              dtype=torch.float32),
+         torch.randn((512, 4099), generator=cgen, device=dev), small, None, "bytes"),
+        ("e: b's ids, f32 slow tier 4 bytes past 16-byte alignment -> bf16",
+         dict(num_blocks=512, fast_blocks=64, block_elems=4096, page_span=16,
+              dtype=torch.bfloat16),
+         torch.randn(512 * 4096 + 1, generator=cgen, device=dev)[1:].view(512, 4096), small,
+         None, "bf16"),
+    ]
+
+
+def _kernel_times(torch, fn, n):
+    """{kernel name: mean device us a launch} over n calls of fn under the
+    profiler (after one warm-up call); every kernel must have exactly n
+    records."""
+    fn()
+    with _profiled(torch) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in _device_events(prof):
+        seen.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, us in seen.items():
+        check(len(us) == n, f"profiler saw {len(us)} {name} records in {n} calls")
+    return {name: sum(us) / n for name, us in seen.items()}
+
+
+def _access_bytes(torch, before, after, ids, row_bytes, pool):
+    """Bytes one access must move, from the states before and after it:
+    the ids; the tag and lru rows of the sets the ids hash to (read) and
+    the elements that change (written); the signature-table entries of the
+    ids' pages and the changed pattern rows (read and written); the
+    changed side-table entries and stamp; each changed fast row written
+    and its slow row read; the counters and the WFQ state."""
+    from repro_torch.kernels.cache_lookup import set_index_ref
+    la, lb = dict(_state_leaves(before)), dict(_state_leaves(after))
+    changed = lambda k: int((la[k] != lb[k]).sum())
+    sets, ways = la["cache.tags"].shape
+    rows = torch.unique(set_index_ref(ids, sets)).numel()
+    pages = torch.unique(torch.div(ids, pool.page_span, rounding_mode="floor")).numel()
+    pt_rows = int((la["spp.pt_weight"] != lb["spp.pt_weight"]).any(1).sum())
+    fast_rows = int((la["fast"] != lb["fast"]).any(1).sum())
+    meta = sum(changed(k) for k in ("cache.tags", "cache.lru", "slot_of_block",
+                                    "block_of_slot", "spp.st_tag", "spp.st_last",
+                                    "spp.st_sig", "spp.pt_sigw"))
+    return (4 * ids.numel() + rows * ways * 8 + pages * 12 + pt_rows * 36 * 2
+            + pool.degree * 36 + 4 * meta + 8 + fast_rows * 2 * row_bytes
+            + 2 * (16 + 12))
+
+
+def access_vs_plain(torch):
+    """tier_access against the plain loop on the card: five id streams
+    through a ``kernel_backend="torch"`` pool and a ``"cuda"`` pool on the
+    same slow tier, the whole TierState (fast tier included) and the slots
+    bit for bit after every access. (b), (d) and (e) must evict and fill a
+    slot twice within one access, (c) must have prefetches filled and
+    valid predictions not filled; the routes swap states mid-run in (b);
+    each of the copy kernel's four kinds runs in some stream. The kernel
+    route makes no host sync (set_sync_debug_mode("error"))."""
+    from repro_torch.configs.base import FamConfig, fam_replace
+    from repro_torch.core import tiering
+    from repro_torch.core.tiering import TieredBlockPool
+    from repro_torch.kernels.cache_lookup import kernel as ck
+    from repro_torch.kernels.cache_lookup import tier_access
+    dev = torch.device(DEVICE)
+    cfg = FamConfig()
+    recorded = []
+    host_schedule = tiering.schedule_batch_host
+
+    def recording(state, nd, npf, **kw):     # the plain route's DWRR inputs and grants
+        out = host_schedule(state, nd, npf, **kw)
+        recorded.append((npf, out[1].count(2)))
+        return out
+    tiering.schedule_batch_host = recording
+    stats = {}
+    try:
+        for name, kw, slow, streams, swap, kind in _access_streams(torch, dev):
+            plain = TieredBlockPool(fam_replace(cfg, kernel_backend="torch"), device=DEVICE, **kw)
+            kern = TieredBlockPool(cfg, device=DEVICE, **kw)
+            sp, sk = plain.init(slow), kern.init(slow)
+            check(ck.copy_path(slow, sk.fast)[0] == kind,
+                  f"{name}: the fill copy takes {ck.copy_path(slow, sk.fast)}, not {kind}")
+            recorded.clear()
+            n = dict(misses=0, evictions=0, twice=0, filled=0, valid=0, granted=0)
+            for i, ids in enumerate(streams):
+                if i == swap:
+                    sp, sk = sk, sp
+                before = [(k, x.clone()) for k, x in _state_leaves(sp)]
+                launches = tier_access.launches
+                torch.cuda.set_sync_debug_mode("error")     # a host sync raises
+                try:
+                    sk, slots_k = kern.access(sk, slow, ids)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                check(tier_access.launches == launches + 1, f"{name}: tier_access did not launch once")
+                sp, slots_p = plain.access(sp, slow, ids)
+                torch.cuda.synchronize()
+                _same_state(torch, sk, sp, f"{name}, access {i}")
+                check(torch.equal(slots_k, slots_p), f"{name}, access {i}: slots differ")
+                b = dict(before)
+                fills = int(float(sp.demand_misses) - float(b["demand_misses"])
+                            + float(sp.prefetches) - float(b["prefetches"]))
+                grown = int((sp.cache.tags > 0).sum() - (b["cache.tags"] > 0).sum())
+                moved = int((sp.block_of_slot != b["block_of_slot"]).sum())
+                n["misses"] += int(float(sp.demand_misses) - float(b["demand_misses"]))
+                n["filled"] += int(float(sp.prefetches) - float(b["prefetches"]))
+                n["evictions"] += fills - grown
+                n["twice"] += fills > moved        # some slot filled at least twice
+            n["valid"] = sum(v for v, _ in recorded)
+            n["granted"] = sum(g for _, g in recorded)
+            stats[name[0]] = n
+            print(f"access_vs_plain {name}: {len(streams)} accesses bit-identical (state, "
+                  f"fast tier, slots; copy kind {kind})"
+                  f"{'; routes swapped at access ' + str(swap) if swap else ''}: "
+                  f"{n['misses']} misses, {n['evictions']} evictions, {n['twice']} accesses "
+                  f"filling a slot twice; predictions valid {n['valid']}, DWRR grants "
+                  f"{n['granted']}, prefetches filled {n['filled']}, not filled "
+                  f"{n['valid'] - n['filled']} (already resident or not granted)", flush=True)
+            del plain, kern, sp, sk, slow
+            torch.cuda.empty_cache()
+    finally:
+        tiering.schedule_batch_host = host_schedule
+    for k in "bde":
+        check(stats[k]["evictions"] > 0 and stats[k]["twice"] > 0,
+              f"stream {k} evicted {stats[k]['evictions']} times, filled a slot twice in "
+              f"{stats[k]['twice']} accesses")
+    check(stats["c"]["filled"] > 0 and stats["c"]["valid"] > stats["c"]["filled"],
+          f"stream c: {stats['c']['filled']} prefetches filled of {stats['c']['valid']} valid")
+    return dict(max_abs_err=0.0, library_ms=None)   # every state bit-identical
+
+
+def access_timing(torch, mhz):
+    """tier_access timed at stream (a) of access_vs_plain (see
+    _time_access)."""
+    from repro_torch.configs.base import FamConfig, fam_replace
+    from repro_torch.core.tiering import TieredBlockPool
+    cfg = FamConfig()
+    _, kw, slow, streams, _, _ = _access_streams(torch, torch.device(DEVICE))[0]
+    plain = TieredBlockPool(fam_replace(cfg, kernel_backend="torch"), device=DEVICE, **kw)
+    kern = TieredBlockPool(cfg, device=DEVICE, **kw)
+    out = _time_access(torch, kern, plain, slow, streams, mhz)
+    del slow
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_access(torch, kern, plain, slow, streams, mhz):
+    """The chain and copy kernels per launch at stream (a), every kernel
+    record held to the launch count: steady state (every id resident: all
+    hits) and all misses, on fresh states; the plain loop per call (CUDA
+    events); the byte bound of each from the states before and after; the
+    chain's cycles an id at ``mhz``, the card's top SM clock."""
+    ids = streams[-1]
+    pst = plain.init(slow)
+    for x in streams:
+        pst, _ = plain.access(pst, slow, x)
+
+    def plain_call():
+        nonlocal pst
+        pst, _ = plain.access(pst, slow, ids)
+    plain_ms = _time(torch, plain_call, 3)
+    del pst
+    st = kern.init(slow)
+    for x in streams:
+        st = kern._access_cuda(st, slow, x)
+    chain, copy = "tier_access_kernel", "tier_copy_kernel"
+
+    def times(fn, n):
+        t = _kernel_times(torch, fn, n)
+        check(len(t) == 2, f"a tier_access call launched {sorted(t)}")
+        (c_us,) = (v for k, v in t.items() if chain in k)
+        (k_us,) = (v for k, v in t.items() if copy in k)
+        return c_us, k_us
+
+    def steady():
+        nonlocal st
+        st = kern._access_cuda(st, slow, ids)
+    hit_chain, hit_copy = times(steady, 50)
+    fresh = iter([kern.init(slow) for _ in range(21)])
+    miss_chain, miss_copy = times(lambda: kern._access_cuda(next(fresh), slow, streams[0]), 20)
+    row = slow.shape[1] * slow.element_size()
+    before = kern.init(slow)
+    snap = [(k, x.clone()) for k, x in _state_leaves(before)]
+    after = kern._access_cuda(before, slow, streams[0])
+    miss_bytes = _access_bytes(torch, _rebuild(snap, before), after, streams[0], row, kern)
+    snap = [(k, x.clone()) for k, x in _state_leaves(st)]
+    after = kern._access_cuda(st, slow, ids)
+    hit_bytes = _access_bytes(torch, _rebuild(snap, st), after, ids, row, kern)
+    del fresh
+    steps = ids.numel() + kern.degree
+    hit_bound, hit_by = _bound(hit_bytes)
+    miss_bound, _ = _bound(miss_bytes)
+    print(f"tier_access @ stream a, K {ids.numel()} + degree {kern.degree}: all hits chain "
+          f"{hit_chain:.2f} us + copy {hit_copy:.2f} us a launch (50 of 50 records each), "
+          f"{hit_chain * mhz / steps:.1f} SM cycles an id at {mhz:.0f} MHz; all misses chain "
+          f"{miss_chain:.2f} us + copy {miss_copy:.2f} us (20 of 20); bound "
+          f"{hit_bound * 1e3:.4f} us all hits ({hit_bytes} B, "
+          f"{hit_by}), {miss_bound * 1e3:.4f} us all misses ({miss_bytes} B); plain loop "
+          f"{plain_ms:.3f} ms a call (CUDA events, all hits)", flush=True)
+    return dict(ms=(hit_chain + hit_copy) / 1e3, plain_ms=plain_ms, bound_ms=hit_bound,
+                bound_by=hit_by, miss_ms=(miss_chain + miss_copy) / 1e3, miss_bound_ms=miss_bound,
+                cycles_per_id=hit_chain * mhz / steps)
+
+
+def _rebuild(snap, like):
+    """A TierState shaped like ``like`` from [(name, tensor)] leaves."""
+    vals = iter(x for _, x in snap)
+
+    def rec(st):
+        return type(st)(*(rec(x) if isinstance(x, tuple) else next(vals) for x in st))
+    return rec(like)
 
 
 # --------------------------------------------------------------------------
@@ -892,22 +1222,13 @@ def _dense_attention(torch, q, k, v):
 def _kernel_events(torch, fn, steps=1):
     """(wall seconds, device kernel events) of ``steps`` calls ``fn(i)``
     under torch.profiler."""
-    from torch.autograd import DeviceType
     with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             fn(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def _profile_steps(torch, fn, steps):
-    """Wall per step, device busy seconds per step and device kernels per
-    step over a torch.profiler window of ``steps`` calls."""
-    wall, kernels = _kernel_events(torch, fn, steps)
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    return wall / steps, busy / steps, len(kernels) / steps
+    return wall, _device_events(prof)
 
 
 def tiered_kv_path(torch):
@@ -940,9 +1261,10 @@ def tiered_kv_path(torch):
         step_s.append(time.perf_counter() - t0)
     launched = counts()
     n = KV_STEPS * len(keys)
-    for name in ("cache_lookup", "paged_attention"):
+    path = ("tier_access", "cache_lookup", "paged_attention")
+    for name in path:
         check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
-    check(all(v == 0 for k, v in launched.items() if k not in ("cache_lookup", "paged_attention")),
+    check(all(v == 0 for k, v in launched.items() if k not in path),
           f"unexpected launches on the decode path: {launched}")
     max_err = 0.0
     for (step, r, l), out in outs.items():
@@ -966,21 +1288,56 @@ def tiered_kv_path(torch):
           f"{KV_LAYERS} layers; hit rate {hits / max(hits + misses, 1):.4f} "
           f"({hits:.0f} hits, {misses:.0f} misses), {prefetches:.0f} prefetches; "
           f"max abs err vs dense {max_err:.3g} (tol {KV_TOL})", flush=True)
-    key = keys[0]
-    state = {"st": st[key]}
-
-    def one(i):
-        state["st"], _ = tk.decode_step(state["st"], slow[key], qs[0, 0, 0],
-                                        KV_PROMPTS[0] + KV_STEPS + 1 + i)
-    # one call: the profiler's host cost grows with the ~50,000 kernels a call
-    per_step, busy, kernels = _profile_steps(torch, one, 1)
-    print(f"tiered-KV profile: 1 warm decode_step call, {per_step * 1e3:.3f} ms wall "
-          f"under the profiler, device busy {busy * 1e3:.3f} ms ({busy / per_step:.2%} "
-          f"of that wall, {busy / (wall / n):.2%} of the unprofiled mean), "
-          f"{kernels:.0f} device kernels", flush=True)
     del raw, slow, st
     torch.cuda.empty_cache()
-    return launched, max_err
+    return launched, wall / n
+
+
+def tiered_kv_profile(torch, call_s, calls=20):
+    """``calls`` warm decode_step calls of one (request, layer) of the
+    tiered-KV decode (after KV_STEPS steps, at prompt KV_PROMPTS[0]) under
+    torch.profiler: wall, device busy and device kernels a call, beside
+    ``call_s``, the decode phase's unprofiled mean wall a call."""
+    from repro_torch.configs.base import FamConfig
+    from repro_torch.serve.tiered_kv import TieredKV, TieredKVConfig
+    dev = torch.device(DEVICE)
+    tk = TieredKV(FamConfig(), TieredKVConfig(block_tokens=KV_BLOCK, fast_blocks=KV_FAST),
+                  max_blocks=KV_CONTEXT // KV_BLOCK, kv_heads=KV_HKV, head_dim=KV_D,
+                  device=DEVICE)
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    slow = tk.pack(*(torch.randn((KV_CONTEXT, KV_HKV, KV_D), generator=cgen, device=dev)
+                     for _ in range(2)))
+    q = torch.randn((KV_HQ, KV_D), generator=cgen, device=dev)
+    state = {"st": tk.init(slow)}
+
+    def one(i):
+        state["st"], _ = tk.decode_step(state["st"], slow, q, KV_PROMPTS[0] + 1 + i)
+    for i in range(KV_STEPS):
+        one(i)
+    reset_counts()
+    wall, events = _kernel_events(torch, lambda i: one(KV_STEPS + i), calls)
+    launched = counts()
+    # the hand-written launches a call (launch counters) and their kernels'
+    # records, held exact, so the window's record count is complete
+    ours = {"tier_access": ("tier_access_kernel", "tier_copy_kernel"),
+            "cache_lookup": ("cache_lookup_kernel",),
+            "paged_attention": ("paged_attention_kernel",)}
+    for name, kernels in ours.items():
+        check(launched[name] == calls, f"{name} launched {launched[name]} times in {calls} calls")
+        for k in kernels:
+            seen = sum(k in e.name for e in events)
+            check(seen == calls, f"profiler saw {seen} {k} records in {calls} calls")
+    per_step = wall / calls
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6 / calls
+    print(f"tiered-KV profile: {calls} warm decode_step calls, {per_step * 1e3:.3f} ms wall "
+          f"a call under the profiler, device busy {busy * 1e3:.4f} ms a call "
+          f"({busy / per_step:.2%} of that wall, {busy / call_s:.2%} of the decode phase's "
+          f"unprofiled mean); {sum(launched[k] for k in ours) / calls:.0f} hand-written "
+          f"launches a call (launch counters: tier_access, cache_lookup, paged_attention; "
+          f"{sum(len(v) for v in ours.values())} kernels, every record present), "
+          f"{len(events) / calls:.1f} device kernels a call in all", flush=True)
+    del slow, state
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -997,15 +1354,7 @@ def expert_path(torch):
     slow = torch.randn((MOE_LAYERS * MOE_EXPERTS, MOE_SLAB), generator=cgen,
                        device=dev, dtype=torch.bfloat16)
     st = tier.init(slow)
-    # a skewed router: per layer a Zipf-like popularity over the experts in
-    # a seeded order, so the hot experts repeat across tokens
-    rng = np.random.default_rng(4)
-    pop = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** 1.2
-    pop /= pop.sum()
-    order = [rng.permutation(MOE_EXPERTS) for _ in range(MOE_LAYERS)]
-    routing = [[torch.from_numpy(order[l][rng.choice(MOE_EXPERTS, MOE_TOP_K, replace=False,
-                                                     p=pop)].astype(np.int32)).to(dev)
-                for l in range(MOE_LAYERS)] for _ in range(MOE_TOKENS)]
+    routing = _expert_routing(torch, dev)
     gathered = []
     reset_counts()
     torch.cuda.synchronize()
@@ -1018,9 +1367,10 @@ def expert_path(torch):
     wall = time.perf_counter() - t0
     launched = counts()
     n = MOE_TOKENS * MOE_LAYERS
-    for name in ("cache_lookup", "block_gather"):
+    path = ("tier_access", "cache_lookup", "block_gather")
+    for name in path:
         check(launched[name] == n, f"{name} launched {launched[name]} times, expected {n}")
-    check(all(v == 0 for k, v in launched.items() if k not in ("cache_lookup", "block_gather")),
+    check(all(v == 0 for k, v in launched.items() if k not in path),
           f"unexpected launches on the expert path: {launched}")
     for layer, experts, slabs in gathered:
         ids = tier.slab_ids(layer, experts).to(torch.int64)
@@ -1328,7 +1678,6 @@ def profile_window(torch, table, replay_ms, steps=200):
     span and of ``replay_ms``, the main path's unprofiled replay wall per
     event (tracing each kernel slows the replays); with ``table`` the
     profiler's op table."""
-    from torch.autograd import DeviceType
     from repro_torch.core import famsim
     donor, p, addrs, gaps, _ = fig08_grid(steps, "cuda")
     famsim.sweep(donor, p, None, addrs[..., :20], gaps[..., :20], device=DEVICE)
@@ -1337,7 +1686,7 @@ def profile_window(torch, table, replay_ms, steps=200):
         famsim.sweep(donor, p, None, addrs, gaps, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+    kernels = sorted(_device_events(prof),
                      key=lambda e: e.time_range.start)
     ours = [e for e in kernels if "cache_step_kernel" in e.name]
     check(len(ours) == steps, f"profiler saw {len(ours)} cache_step_kernel launches "
@@ -1373,6 +1722,10 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    # the card's top SM clock, for the access chain's cycles an id
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     for lib, log in phases.run("build", build_all):
         print(f"built {lib.name}\n{log.strip()}", flush=True)
@@ -1385,14 +1738,20 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(0)
     max_err, timing = phases.run("kernel_vs_plain", kernel_vs_plain, torch, gen)
     tiering = phases.run("tiering_kernels_vs_plain", tiering_kernels_vs_plain, torch, gen)
+    tiering["tier_access"] = phases.run("access_vs_plain", access_vs_plain, torch)
+    tiering["tier_access"].update(phases.run("access_timing", access_timing, torch, mhz))
     flash = phases.run("flash_attention_vs_plain", flash_vs_plain, torch)
-    kv_launched, _ = phases.run("tiered_kv", tiered_kv_path, torch)
+    kv_launched, kv_call_s = phases.run("tiered_kv", tiered_kv_path, torch)
+    phases.run("tiered_kv_profile", tiered_kv_profile, torch, kv_call_s)
     moe_launched = phases.run("expert_tiering", expert_path, torch)
     serve_launched = phases.run("serving", serving_path, torch)
     launches, _, replay_ms = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
     phases.run("graph_profile", profile_window, torch, args.profile, replay_ms)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
+    print(f"profiler windows: {len(lead_in_lost)}, lead-in records lost at their start "
+          f"{sum(lead_in_lost)} of {LEAD_IN * len(lead_in_lost)} (per window, in order: "
+          f"{lead_in_lost})")
     print(smi)
     rows = {"fused_cache_step": dict(
         launches=launches, max_abs_err=max_err, ms=timing["ms"],

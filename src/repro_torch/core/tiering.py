@@ -13,16 +13,21 @@ fixed-size blocks (KV pages, expert slabs):
 trains the SPP engine on the block-id stream, arbitrates demand vs
 prefetch copies with DWRR and prefetches the predicted blocks, in the JAX
 reference's order. Reads then gather from the fast region.
-``cfg.kernel_backend`` routes :meth:`probe` and :meth:`read` through the
-CUDA kernels ``cache_lookup`` and ``block_gather`` (``"cuda"``; their
-plain versions on CPU tensors) or the plain versions (``"torch"``).
+``cfg.kernel_backend`` routes the access, :meth:`probe` and :meth:`read`
+through the CUDA kernels ``tier_access``, ``cache_lookup`` and
+``block_gather`` (``"cuda"``; their plain versions on CPU tensors) or the
+plain versions (``"torch"``).
 
 **In place.** Where JAX returns a new state, the port writes the fast
 pool, the side tables, the cache metadata and the SPP tables in place and
-returns a state that shares them: the state passed in is consumed. The
-demand loop never syncs with the host (a masked touch and a masked fill
-replace the reference's ``cond``); the DWRR schedule runs on host ints
-after one sync per access (:func:`wfq.schedule_batch_host`).
+returns a state that shares them: the state passed in is consumed.
+
+**The access's two routes.** On the card, ``tier_access`` runs the whole
+access up to its final probe in a chain kernel and a copy kernel, with no
+host sync. Its plain version, :meth:`TieredBlockPool._access_torch`, is an
+eager loop: a masked touch and a masked fill per id replace the
+reference's ``cond``, and the DWRR schedule runs on host ints after one
+sync per access (:func:`wfq.schedule_batch_host`).
 """
 from __future__ import annotations
 
@@ -30,13 +35,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import FamConfig
+from repro_torch.configs.base import KERNEL_BACKENDS, FamConfig
 from repro_torch.core import dram_cache as dc
 from repro_torch.core import spp as spp_lib
 from repro_torch.core.wfq import (PREFETCH, WfqState, init_wfq,
                                   schedule_batch_host)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_gather import gather_blocks
+from repro_torch.kernels.cache_lookup import tier_access
 from repro_torch.kernels.cache_lookup import lookup as cache_lookup
 
 F32, I32, I64 = torch.float32, torch.int32, torch.int64
@@ -139,8 +145,49 @@ class TieredBlockPool:
 
         Demand misses fill immediately; then SPP-predicted blocks are
         prefetched subject to DWRR arbitration against the step's demand
-        count."""
+        count. ``kernel_backend="torch"``, or ``"cuda"`` on CPU tensors,
+        runs that as the plain loop (:meth:`_access_torch`); ``"cuda"`` on
+        CUDA tensors launches the ``tier_access`` kernels (never the loop);
+        any other device raises."""
         ids = ids.to(I32).contiguous()
+        backend = self.cfg.kernel_backend
+        if backend not in KERNEL_BACKENDS:
+            raise ValueError(f"unknown kernel backend {backend!r}; expected one "
+                             f"of {KERNEL_BACKENDS}")
+        if backend == "torch" or ids.device.type == "cpu":
+            st = self._access_torch(st, slow, ids, prefetch=prefetch)
+        elif ids.device.type == "cuda":
+            st = self._access_cuda(st, slow, ids, prefetch=prefetch)
+        else:
+            raise ValueError(f"the tier access runs on cuda or cpu tensors, not "
+                             f"{ids.device}")
+        hit, _, kslot = self.probe(st, ids)
+        # every demand id was just filled, so the metadata probe resolves
+        # them all; the side table only backs up a (never-taken) miss
+        slots = torch.where(hit, kslot, st.slot_of_block[ids.to(I64)])
+        return st, slots
+
+    def _access_cuda(self, st: TierState, slow: torch.Tensor, ids: torch.Tensor,
+                     *, prefetch: bool = True) -> TierState:
+        """The access up to its final probe through the ``tier_access``
+        kernels: the cache, side and SPP tables and the fast tier in place,
+        the WFQ state and the counters in new tensors."""
+        cfg = self.cfg
+        wfq, counters = tier_access(
+            st.cache, (st.slot_of_block, st.block_of_slot), st.spp, st.wfq,
+            (st.hits, st.demand_misses, st.prefetch_hits, st.prefetches), slow, st.fast,
+            ids, page_span=self.page_span, degree=self.degree,
+            sig_bits=cfg.spp_signature_bits, threshold=cfg.spp_confidence_threshold,
+            weight=self.weight, quantum=cfg.wfq_quantum, max_deficit=cfg.wfq_max_deficit,
+            prefetch=prefetch)
+        hits, misses, pf_hits, prefetches = counters.unbind()
+        return st._replace(wfq=WfqState(*wfq.unbind()), hits=hits, demand_misses=misses,
+                           prefetch_hits=pf_hits, prefetches=prefetches)
+
+    def _access_torch(self, st: TierState, slow: torch.Tensor, ids: torch.Tensor,
+                      *, prefetch: bool = True) -> TierState:
+        """The access up to its final probe as an eager loop: the plain
+        version of the ``tier_access`` kernels. ``ids``: (K,) int32."""
         K = ids.shape[0]
         cfg = self.cfg
         misses = []
@@ -192,12 +239,7 @@ class TieredBlockPool:
                 self._fill(st, slow, bid, do)
                 prefetches = prefetches + do.to(F32)
             st = st._replace(prefetches=prefetches)
-
-        hit, _, kslot = self.probe(st, ids)
-        # every demand id was just filled, so the metadata probe resolves
-        # them all; the side table only backs up a (never-taken) miss
-        slots = torch.where(hit, kslot, st.slot_of_block[ids.to(I64)])
-        return st, slots
+        return st
 
     def probe(self, st: TierState, ids: torch.Tensor):
         """Batched residency probe over the set-assoc metadata (paper Fig. 6:

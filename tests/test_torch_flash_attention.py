@@ -241,7 +241,7 @@ def test_source_holds_both_kernels():
 
 
 def test_source_exists_and_is_built_with_the_others():
-    """chip_smoke.py lists the source beside the other four, and nvcc.build_all
+    """chip_smoke.py lists the source beside the other five, and nvcc.build_all
     compiles that list: one library per source under its package's build/."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
@@ -253,7 +253,7 @@ def test_source_exists_and_is_built_with_the_others():
     text = fa_kernel.SOURCE.read_text()
     assert 'extern "C" int flash_attention(' in text
     assert "__pipeline_memcpy_async" in text
-    assert len(chip_smoke.KERNELS) == 5
+    assert len(chip_smoke.KERNELS) == 6
     assert nvcc.library_path(fa_kernel.SOURCE).parent == fa_kernel.SOURCE.parent.parent / "build"
 
 

@@ -6,7 +6,8 @@ interpret mode, as ``tests/test_kernels.py`` runs them: ``cache_lookup``
 and ``block_gather`` exactly, ``paged_attention`` within 2e-5 in float32
 and 3e-2 in bfloat16 (the reference's own tolerances: the kernel takes the
 softmax online, the plain version in one pass). They also hold the
-wrappers' input checks and the shared nvcc build helper. The kernels
+wrappers' input checks, the tier access's launch plan (shared memory
+layout, fill-copy path) and the shared nvcc build helper. The kernels
 themselves are held to the same plain versions on the card by
 ``chip_smoke.py``.
 """
@@ -25,8 +26,11 @@ from repro.kernels.paged_attention.kernel import paged_attention as j_paged_atte
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.block_gather import (block_gather, block_gather_ref,
                                               gather_blocks)
-from repro_torch.kernels.cache_lookup import (cache_lookup, cache_lookup_ref,
-                                              lookup, set_index_ref)
+from repro_torch.configs.base import FamConfig, fam_replace
+from repro_torch.core.tiering import TieredBlockPool
+from repro_torch.kernels.cache_lookup import (cache_lookup, cache_lookup_ref, lookup,
+                                              set_index_ref)
+from repro_torch.kernels.cache_lookup import kernel as ck
 from repro_torch.kernels.paged_attention import (decode_attention,
                                                  paged_attention,
                                                  paged_attention_ref)
@@ -316,6 +320,77 @@ def test_cpu_wrappers_count_no_launch():
     paged_attention(**_attention_args())
     assert (cache_lookup.launches, block_gather.launches,
             paged_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# tier_access: shared memory layout and the fill copy
+# ---------------------------------------------------------------------------
+
+def test_tier_access_layout_at_the_paths_shapes():
+    """The tiered decode (32 x 16, K 256) and the expert tier (12 x 16,
+    K 8) hold their tag and lru rows and ids in shared memory, under the
+    48 KB a launch gets without opting in; the SPP tables stay in device
+    memory at any prefetch setting."""
+    kv = 4 * (2 * 512 + 7 * 256) + 512
+    assert ck.access_layout(32, 16, 256, 4) == kv < 48 * 1024
+    moe = 4 * (2 * 192 + 7 * 8) + 192
+    assert ck.access_layout(12, 16, 8, 4) == moe
+    # ragged sizes round each region up to 16 bytes
+    assert ck.access_shared_bytes(3, 3, 1) == 4 * 28 + 16
+    # the wrapper's limit is the source's, under 48 KB (no opt-in)
+    assert (f"kMaxSharedBytes = {ck.MAX_SHARED_BYTES // 1024} * 1024;"
+            in ck.ACCESS_SOURCE.read_text())
+    assert ck.MAX_SHARED_BYTES < 48 * 1024
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    ((4, 40, 8, 4), {}, "at most 32 ways"),
+    ((4, 16, 8, 40), {}, "prefetch degree"),
+    ((4096, 16, 256, 4), {}, "tag and lru rows"),
+    ((32, 16, 9000, 4), {}, "9000 ids"),
+    ((32, 16, 256, 4), {"degree": 33}, "at most 32, got 33"),
+])
+def test_tier_access_refuses_what_it_cannot_hold(args, kw, match):
+    with pytest.raises(ValueError, match=match):
+        ck.access_layout(*args[:3], **{"degree": args[3], **kw})
+
+
+def test_tier_access_keeps_large_spp_tables_in_device_memory():
+    """The SPP tables never enter shared memory: the chain reads and
+    writes them through their device pointers, and the layout counts only
+    the tag and lru rows, the ids and the fill flags, so no SPP size
+    limits a pool."""
+    assert "const Spp& tab = a.spp;" in ck.ACCESS_SOURCE.read_text()
+    assert ck.access_layout(32, 16, 256, 4) == ck.access_shared_bytes(32, 16, 256)
+
+
+@pytest.mark.parametrize("slow_dtype,fast_dtype,E,offset,want", [
+    (torch.float32, torch.float32, 16384, 0, ("vector", 4096)),
+    (torch.bfloat16, torch.bfloat16, 24, 0, ("vector", 3)),
+    (torch.bfloat16, torch.bfloat16, 12, 0, ("bytes", 24)),
+    (torch.float32, torch.float32, 8, 1, ("bytes", 32)),
+    (torch.float32, torch.bfloat16, 8, 0, ("bf16x4", 2)),
+    (torch.float32, torch.bfloat16, 6, 0, ("bf16", 6)),
+    (torch.float32, torch.bfloat16, 8, 1, ("bf16", 8)),
+])
+def test_tier_access_copy_path(slow_dtype, fast_dtype, E, offset, want):
+    flat = torch.zeros(4 * E + offset, dtype=slow_dtype)
+    slow = flat[offset:].view(4, E)
+    assert ck.copy_path(slow, torch.zeros((2, E), dtype=fast_dtype)) == want
+
+
+def test_tier_access_refuses_other_type_pairs():
+    with pytest.raises(TypeError, match="float32 -> bfloat16"):
+        ck.copy_path(torch.zeros((2, 8), dtype=torch.bfloat16), torch.zeros((2, 8)))
+
+
+def test_access_dispatch_refuses_unknown_backends():
+    """The pool routes the access itself and refuses a backend it does not
+    know before touching any tensor."""
+    pool = TieredBlockPool(fam_replace(FamConfig(), kernel_backend="triton"), 64, 16, 8,
+                           dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="kernel backend"):
+        pool.access(None, None, torch.tensor([1], dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,14 @@ every ``TierState`` field and the counters bit for bit, for both kernel
 backends), ``TieredKV.decode_step`` (within 2e-5 of JAX's, whose Pallas
 paged attention runs in interpret mode), ``ExpertTier.gather_experts``
 (exact in float32 and bfloat16), and a mid-run handover of a JAX state
-through ``from_numpy``.
+through ``from_numpy``. A Python mirror of the ``tier_access`` kernel's
+plan (the metadata chain first, the filled slots copied after) is held
+bit for bit to the plain loop and to JAX, and so is a state passed from
+one route to the other mid-run.
 """
+import collections
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +31,7 @@ from repro_torch.core import spp as tspp
 from repro_torch.core import wfq as twfq
 from repro_torch.core.fam_params import from_numpy
 from repro_torch.core.tiering import TieredBlockPool, TierState
-from repro_torch.kernels.cache_lookup import cache_lookup
+from repro_torch.kernels.cache_lookup import cache_lookup, tier_access
 from repro_torch.serve.expert_tiering import ExpertTier
 from repro_torch.serve.tiered_kv import TieredKV, TieredKVConfig
 
@@ -169,6 +174,320 @@ def test_access_probes_through_the_lookup_wrapper(monkeypatch):
         for i in range(3):
             st, _ = pool.access(st, slow, torch.tensor([i, i + 1], dtype=torch.int32))
         assert len(calls) == want
+
+
+# ---------------------------------------------------------------------------
+# the tier_access kernel's plan, mirrored on host ints
+# ---------------------------------------------------------------------------
+
+def _u32_hash(x, shift):
+    return (((x & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF) >> shift
+
+
+def _mirror_dwrr(state, nd, npf, W, q, md, issues):
+    """The kernel's DWRR (r = 1): cycles one by one while prefetches wait;
+    while only demands wait, one demand a cycle (a demand turn sets dd =
+    min(dd + q, md) - 1, a prefetch turn dd -= 1 and pd = min(pd + q, md));
+    the idle rest in closed form (each demand turn sets dd = min(dd + q,
+    md), each prefetch turn pd = min(pd + q, md))."""
+    cr, dd, pd = state
+    r, granted, c = 1, 0, 0
+    while c < issues:
+        in_range = W >= 0 and 0 <= cr <= W
+        if npf <= 0 and nd > 0 and in_range:      # only demands: one a cycle
+            m = min(nd, issues - c)
+            for _ in range(m):
+                cr = 0 if cr == W else cr + 1
+                if cr:
+                    dd = min(dd + q, md) - 1
+                else:
+                    dd, pd = dd - 1, min(pd + q * r, md * r)
+            nd, c = nd - m, c + m
+            continue
+        if nd <= 0 and npf <= 0 and q >= 0 and in_range:
+            break
+        cr = (cr + 1) % (W + 1)
+        turn, dr, pr = cr != 0, nd > 0, npf > 0
+        dd_d = min(dd + q, md)
+        cd = 1 if dr and dd_d > 0 else (2 if pr and pd > r else 0)
+        pd_p = min(pd + q * r, md * r)
+        cp = 2 if pr and pd_p > r else (1 if dr and dd > 0 else 0)
+        choice = cd if turn else cp
+        fallback = 1 if dr else (2 if pr else 0)
+        floored = choice == 0 and fallback != 0
+        choice = fallback if choice == 0 else choice
+        if turn:
+            dd, pd = (dd_d - 1 if cd == 1 else dd_d), (pd - r if cd == 2 else pd)
+        else:
+            dd, pd = (dd - 1 if cp == 1 else dd), (pd_p - r if cp == 2 else pd_p)
+        dd -= floored and choice == 1
+        pd -= r if floored and choice == 2 else 0
+        nd -= choice == 1
+        npf -= choice == 2
+        granted += choice == 2
+        c += 1
+    n = issues - c
+    if n > 0:
+        p_turns = (cr + n) // (W + 1)
+        if n - p_turns:
+            dd = min(dd + q * (n - p_turns), md)
+        if p_turns:
+            pd = min(pd + q * r * p_turns, md * r)
+        cr = (cr + n) % (W + 1)
+    return (cr, dd, pd), granted
+
+
+def _mirror_access(pool, st, slow, ids, prefetch=True):
+    """``tier_access`` as ``csrc/tier_access.cu`` plans it, on host ints,
+    with the chains split as the kernel splits them and walked in reverse
+    order of their keys (any order of the chains must give the same
+    state): the demand ids by set, id i at stamp + i + 1 (first match,
+    first vacancy, first LRU minimum; each filled slot listed once); SPP
+    update by signature-table entry, then by pattern row; predict (float32
+    confidence), DWRR and the prefetch fills in order; only then is each
+    listed slot copied once, from slow[block_of_slot[slot]]. Returns
+    (state, fills per slot in this access)."""
+    cfg = pool.cfg
+    sets, ways = pool.num_sets, cfg.cache_ways
+    tags, lru = st.cache.tags.view(-1).tolist(), st.cache.lru.view(-1).tolist()
+    sob, bos = st.slot_of_block.tolist(), st.block_of_slot.tolist()
+    stamp0 = int(st.cache.stamp)
+    listed, writes = [], collections.Counter()
+    set_of = lambda bid: _u32_hash(bid, 7) % sets
+
+    def fill(bid, stamp):
+        base = set_of(bid) * ways
+        row = tags[base:base + ways]
+        if 0 in row:
+            way, evicted = row.index(0), -1
+        else:
+            lrow = lru[base:base + ways]
+            way = lrow.index(min(lrow))
+            evicted = row[way] - 1
+        tags[base + way], lru[base + way] = bid + 1, stamp
+        slot = base + way
+        if evicted >= 0:
+            sob[evicted] = -1
+        sob[bid], bos[slot] = slot, bid
+        if slot not in listed:
+            listed.append(slot)
+        writes[slot] += 1
+
+    def by_key(keys):
+        """{key: [i, ...] in id order}, the keys in reverse order."""
+        groups = collections.defaultdict(list)
+        for i, k in enumerate(keys):
+            groups[k].append(i)
+        return [groups[k] for k in sorted(groups, reverse=True)]
+
+    ids_l = ids.tolist()
+    n_miss = 0
+    for chain in by_key([set_of(b) for b in ids_l]):
+        for i in chain:
+            bid, base = ids_l[i], set_of(ids_l[i]) * ways
+            row = tags[base:base + ways]
+            if bid + 1 in row:
+                lru[base + row.index(bid + 1)] = stamp0 + i + 1
+            else:
+                n_miss += 1
+                fill(bid, stamp0 + i + 1)
+    stamp = stamp0 + len(ids_l)
+    n_prefetched, wfq = 0, st.wfq
+    if prefetch:
+        sp = {k: v.view(-1).tolist() for k, v in st.spp._asdict().items()}
+        ST, PT, ps = cfg.spp_signature_entries, cfg.spp_pattern_entries, pool.page_span
+        mask = (1 << cfg.spp_signature_bits) - 1
+        pages, blks = [b // ps for b in ids_l], [b % ps for b in ids_l]
+        entry = [_u32_hash(p, 8) % ST for p in pages]
+        row_of, delta_of, sigs = {}, {}, {}
+        for chain in by_key(entry):
+            for i in chain:
+                idx, blk = entry[i], blks[i]
+                hit = sp["st_tag"][idx] == pages[i] + 1
+                delta, old = blk - sp["st_last"][idx], sp["st_sig"][idx]
+                if hit and delta != 0:
+                    row_of[i], delta_of[i] = old % PT, delta
+                sigs[i] = ((old << 4) ^ (delta & mask)) & mask if hit else blk & mask
+                sp["st_tag"][idx], sp["st_last"][idx], sp["st_sig"][idx] = pages[i] + 1, blk, sigs[i]
+        for pt in sorted(set(row_of.values()), reverse=True):
+            chain = sorted(i for i in row_of if row_of[i] == pt)
+            # runs of one delta: the first trains, the rest only add weight
+            runs = [list(g) for _, g in itertools.groupby(chain, key=lambda i: delta_of[i])]
+            for run in runs:
+                row, delta = pt * 4, delta_of[run[0]]
+                d, w = sp["pt_delta"][row:row + 4], sp["pt_weight"][row:row + 4]
+                live = [j for j in range(4) if d[j] == delta and w[j] > 0]
+                way = live[0] if live else w.index(min(w))
+                sp["pt_delta"][row + way] = delta
+                w_new = min(w[way] + 1, 15) if live else 1
+                sp["pt_weight"][row + way] = min(w_new + len(run) - 1, 15)
+                if sp["pt_sigw"][pt] < 60:
+                    sp["pt_sigw"][pt] = min(sp["pt_sigw"][pt] + len(run), 60)
+        page = pages[-1]
+        cur_sig, cur_blk, conf, alive = sigs[len(ids_l) - 1], blks[-1], np.float32(1.0), True
+        cands = []
+        for _ in range(pool.degree):
+            row = cur_sig % PT * 4
+            w = sp["pt_weight"][row:row + 4]
+            way = w.index(max(w))
+            step = np.float32(w[way]) / np.float32(max(sp["pt_sigw"][cur_sig % PT], 1))
+            new_conf = conf * min(step * np.float32(4.0), np.float32(1.0))
+            delta = sp["pt_delta"][row + way]
+            nb = cur_blk + delta
+            ok = (alive and w[way] > 0 and new_conf >= np.float32(cfg.spp_confidence_threshold)
+                  and 0 <= nb < ps and delta != 0)
+            cands.append((min(max(page * ps + (nb if ok else 0), 0), pool.num_blocks - 1), ok))
+            if ok:
+                cur_sig, cur_blk, conf = ((cur_sig << 4) ^ (delta & mask)) & mask, nb, new_conf
+            alive = ok
+        state, granted = _mirror_dwrr(
+            tuple(int(x) for x in st.wfq), n_miss, sum(ok for _, ok in cands), pool.weight,
+            cfg.wfq_quantum, cfg.wfq_max_deficit, pool.degree + len(ids_l))
+        rank = -1
+        for bid, ok in cands:
+            rank += ok
+            base = set_of(bid) * ways
+            if ok and bid + 1 not in tags[base:base + ways] and rank < granted:
+                n_prefetched += 1
+                fill(bid, stamp + n_prefetched)
+        for k, v in sp.items():
+            getattr(st.spp, k).view(-1).copy_(torch.tensor(v, dtype=torch.int32))
+        wfq = twfq.WfqState(*torch.tensor(state, dtype=torch.int32).unbind())
+    # the metadata in place, then the copies of the listed slots
+    st.cache.tags.view(-1).copy_(torch.tensor(tags, dtype=torch.int32))
+    st.cache.lru.view(-1).copy_(torch.tensor(lru, dtype=torch.int32))
+    st.cache.stamp.fill_(stamp + n_prefetched)
+    st.slot_of_block.copy_(torch.tensor(sob, dtype=torch.int32))
+    st.block_of_slot.copy_(torch.tensor(bos, dtype=torch.int32))
+    for slot in listed:
+        st.fast[slot] = slow[bos[slot]].to(st.fast.dtype)
+    n_hit = np.float32(len(ids_l) - n_miss)
+    counters = torch.tensor([st.hits + n_hit, st.demand_misses + np.float32(n_miss),
+                             st.prefetch_hits + n_hit, st.prefetches + np.float32(n_prefetched)],
+                            dtype=torch.float32)
+    hits, misses, pf_hits, prefetches = counters.unbind()
+    return st._replace(wfq=wfq, hits=hits, demand_misses=misses, prefetch_hits=pf_hits,
+                       prefetches=prefetches), writes
+
+
+@pytest.mark.parametrize("weight,quantum,max_deficit", [(2, 1, 8), (3, 2, 5), (1, 0, 4),
+                                                        (2, -1, 8)])
+def test_kernel_dwrr_plan_matches_the_schedule(weight, quantum, max_deficit):
+    """The kernel's DWRR (the idle cycles in closed form) equals the host
+    schedule on random states, rounds out of range and empty queues
+    included."""
+    rng = np.random.default_rng(weight * 7 + quantum)
+    for _ in range(400):
+        state = (int(rng.integers(-2, weight + 3)), int(rng.integers(-20, 12)),
+                 int(rng.integers(-20, 12)))
+        nd, npf = int(rng.integers(0, 40)), int(rng.integers(0, 6))
+        issues = int(rng.integers(0, 60))
+        want_state, order = twfq.schedule_batch_host(
+            state, nd, npf, weight=weight, quantum=quantum, max_deficit=max_deficit, r=1,
+            max_issues=issues)
+        got = _mirror_dwrr(state, nd, npf, weight, quantum, max_deficit, issues)
+        assert got == (want_state, order.count(twfq.PREFETCH))
+
+
+def _mirror_streams(kind):
+    rng = np.random.default_rng(7)
+    if kind == "random":
+        return [rng.integers(0, 64, 32).astype(np.int32) for _ in range(8)]
+    # a sliding window over the blocks, larger than the fast tier: SPP
+    # learns it, and every access evicts and refills slots
+    return [((np.arange(32) + 5 * i) % 64).astype(np.int32) for i in range(8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _j_access_dtype(fast_blocks, prefetch, dtype):
+    pool = JPool(J_CFG, num_blocks=64, fast_blocks=fast_blocks, block_elems=8,
+                 dtype=getattr(jnp, dtype))
+    return pool, jax.jit(functools.partial(pool.access, prefetch=prefetch))
+
+
+def _mirror_setup(prefetch, dtype):
+    jpool, j_access = _j_access_dtype(16, prefetch, dtype)
+    slow_np = np.random.default_rng(8).normal(size=(64, 8)).astype(np.float32)
+    pool = TieredBlockPool(_cfg("torch"), 64, 16, 8, dtype=getattr(torch, dtype), device="cpu")
+    return jpool, j_access, jnp.asarray(slow_np), pool, torch.from_numpy(slow_np)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prefetch", [True, False])
+@pytest.mark.parametrize("kind", ["random", "sliding"])
+def test_kernel_plan_mirror_matches_plain_and_jax(kind, prefetch, dtype):
+    """Fast tier 16 blocks (4 sets x 4 ways), K 32: the mirror of the
+    kernel's plan, the plain loop and JAX leave the same TierState bit for
+    bit after every access, and some access fills one slot twice."""
+    jpool, j_access, j_slow, pool, slow = _mirror_setup(prefetch, dtype)
+    jst, pst, mst = jpool.init(j_slow), pool.init(slow), pool.init(slow)
+    twice, prefetched = 0, []
+    for ids in _mirror_streams(kind):
+        jst, _ = j_access(jst, j_slow, jnp.asarray(ids))
+        t_ids = torch.from_numpy(ids)
+        pst = pool._access_torch(pst, slow, t_ids, prefetch=prefetch)
+        mst, writes = _mirror_access(pool, mst, slow, t_ids, prefetch)
+        twice += max(writes.values()) > 1
+        prefetched.append(float(mst.prefetches))
+        assert_state_equal(jst, pst)
+        assert_state_equal(jst, mst)
+    assert twice > 0
+    if prefetch and kind == "sliding":
+        assert prefetched[-1] > 0
+
+
+def test_routes_hand_over_mid_run():
+    """A state passes plain loop -> kernel plan -> plain loop -> kernel
+    plan every two accesses (the plan's counters and WFQ state are views
+    of one tensor each, as the kernel leaves them) and stays JAX's."""
+    jpool, j_access, j_slow, pool, slow = _mirror_setup(True, "float32")
+    jst, st = jpool.init(j_slow), pool.init(slow)
+    for i, ids in enumerate(_mirror_streams("sliding") + _mirror_streams("random")):
+        jst, j_slots = j_access(jst, j_slow, jnp.asarray(ids))
+        t_ids = torch.from_numpy(ids)
+        if i // 2 % 2:
+            st, _ = _mirror_access(pool, st, slow, t_ids)
+        else:
+            st = pool._access_torch(st, slow, t_ids)
+        assert_state_equal(jst, st)
+    assert float(st.prefetches) > 0
+
+
+def test_tier_access_runs_the_plain_loop_on_cpu(monkeypatch):
+    """On CPU tensors the pool runs its plain loop under either backend
+    and the kernel wrapper is never reached (no launch counted); the
+    wrapper itself takes CUDA tensors only and raises on any other device
+    or on ids of another type; the pool refuses an unknown backend."""
+    slow = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    for backend in ("cuda", "torch"):
+        pool = TieredBlockPool(_cfg(backend), 64, 16, 8, dtype=torch.float32, device="cpu")
+        calls = []
+        plain = pool._access_torch
+        monkeypatch.setattr(pool, "_access_torch",
+                            lambda *a, **kw: calls.append(kw) or plain(*a, **kw))
+        monkeypatch.setattr(pool, "_access_cuda", lambda *a, **kw: pytest.fail("kernel route"))
+        before = tier_access.launches
+        st = pool.init(slow)
+        for prefetch in (True, False):
+            st, _ = pool.access(st, slow, torch.tensor([3, 9, 3], dtype=torch.int32),
+                                prefetch=prefetch)
+        assert calls == [{"prefetch": True}, {"prefetch": False}]
+        assert tier_access.launches == before
+    args = (st.cache, (st.slot_of_block, st.block_of_slot), st.spp, st.wfq,
+            (st.hits, st.demand_misses, st.prefetch_hits, st.prefetches), slow, st.fast)
+    kw = dict(page_span=16, degree=4, sig_bits=12, threshold=0.25, weight=2, quantum=1,
+              max_deficit=8)
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="cuda tensors.*_access_torch"):
+            tier_access(*args, torch.tensor([1], dtype=torch.int32, device=device), **kw)
+    with pytest.raises(TypeError, match="ids"):
+        tier_access(*args, torch.tensor([1], dtype=torch.int64), **kw)
+    with pytest.raises(ValueError, match="kernel backend"):
+        TieredBlockPool(_cfg("pallas"), 64, 16, 8, device="cpu").access(
+            st, slow, torch.tensor([1], dtype=torch.int32))
+    meta = TieredBlockPool(_cfg(), 64, 16, 8, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="cuda or cpu tensors, not meta"):
+        meta.access(st, slow, torch.tensor([1], dtype=torch.int32, device="meta"))
 
 
 # ---------------------------------------------------------------------------
