@@ -88,7 +88,11 @@ code != 0):
    per decode step, greedy agreement of the two backends;
 8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
-   padded to 16384 x 16) through ``repro_torch.core.famsim.sweep``, which
+   padded to 16384 x 16; the traces are the figure golden's inputs, put
+   in the executor's trace memo first: the ones numpy draws through
+   ``Generator.zipf`` from ``figures_numpy_traces.npz``, which numpy
+   releases sample differently, the rest generated here and held to the
+   golden's digests) through ``repro_torch.core.famsim.sweep``, which
    replays a CUDA graph of ``GRAPH_EVENTS`` steps, the kernel launched once
    per event; per-block-size ipc_gain / rel_fam_latency geomeans, simulated
    events/s/device and the graph's capture time and memory pool;
@@ -99,7 +103,29 @@ code != 0):
    configuration against ``src/repro_torch/testdata/famsim_golden.json``;
 10. a torch.profiler window of a graphed 200-event sweep of the grid:
    exactly 200 ``cache_step_kernel`` launches; over the replays, device
-   kernels per event and the device's busy share.
+   kernels per event and the device's busy share;
+11. device traces: the threefry generator (``repro_torch.traces.device``)
+   for all 19 workloads at T = 12,000, seed 0, on the card and on the CPU:
+   every draw (raw, u, uni, starts, bases, spans) and every address the
+   zipf tail does not set bit for bit between the two and against the
+   SHA-256 digests of JAX's in ``src/repro_torch/testdata/trace_digests.json``;
+   the share of tail addresses and the largest relative gap difference
+   between the card and the CPU; the card's generation seconds;
+12. the figure sweeps: fig08, fig14 and fig16 at their quick size and full
+   T (12,000, 10,000, 16,000) through their drivers' ``run_figure`` (one
+   ``repro_torch.experiments`` call each) on the card, with numpy and
+   with device traces, the counts read around these six runs alone: one
+   graph capture per figure, ``fused_cache_step`` launched ``t_pad`` times
+   per group; numpy traces: every ``derived`` string equal to JAX's
+   (``src/repro_torch/testdata/figures_golden.json``), per-point
+   cache_occupancy bit for bit and ipc / fam_latency within the golden's
+   rtol, fig08 equal to phase 8's grid bit for bit; device traces: every
+   printed ratio within FIG_LOG_TOL of JAX's; wall, capture and trace
+   generation seconds and events/s/device (for numpy traces also their
+   host generation, which the memo keeps out of the wall); then each
+   run's engine row through the driver's ``engine``: the per-point check
+   (FIG_ENGINE_POINTS points a figure at full T) exact, and the grid at
+   ``XCHECK_T`` events graphed and re-run step by step: bit-exact.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last two lines of standard output are the kernel table
@@ -184,6 +210,11 @@ FLASH_D128_ARCH = "yi-9b"
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
 SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|, rtol 0.05
+# the figure sweeps (phase 12) against JAX's golden values
+FIGURES = ("fig08_blocksize", "fig14_mixes", "fig16_cachesize")
+FIG_LOG_TOL = 0.01             # device traces: |log(port / JAX)| of every printed ratio
+FIG_ENGINE_POINTS = 2          # per-point engine check (the reference: 12 / 4; cut for time)
+TRACE_T = 12_000               # phase 11's trace length
 PROFILE_MARGIN_S = 0.1         # idle seconds at each end of a profiler window
 LEAD_IN, LEAD_IN_CYCLES = 16, 1_000_000   # spin kernels opening a window, ~0.5 ms each
 LEAD_IN_KERNEL = "spin_kernel"            # torch.cuda._sleep's kernel
@@ -1555,12 +1586,14 @@ def fig08_grid(T, kernel_backend):
     quick grid: block size x workload x {base, dram}."""
     from repro_torch.configs.base import FamConfig, fam_replace
     from repro_torch.core.fam_params import FamParams, stack_params
+    from repro_torch.experiments import trace_arrays
     from repro_torch.policies import SimFlags
-    from repro_torch.traces import system_traces
     base = fam_replace(FamConfig(), num_nodes=1, kernel_backend=kernel_backend)
     variants = {"base": SimFlags(core_prefetch=False, dram_prefetch=False),
                 "dram": SimFlags()}
-    traces = {w: system_traces([w], T, 0) for w in QUICK_WORKLOADS}
+    # the executor's trace memo: at T_MAIN it holds JAX's golden inputs
+    # (seed_golden_traces), so this grid and phase 12's fig08 share them
+    traces = {w: trace_arrays([w], T, 0) for w in QUICK_WORKLOADS}
     params, addrs, gaps, keys = [], [], [], []
     for bs in FIG08_BLOCKS:
         for w in QUICK_WORKLOADS:
@@ -1636,7 +1669,7 @@ def main_path(torch):
           f"{last_graph['pool_bytes']} B; replays {replay:.3f} s = "
           f"{replay / T_MAIN * 1e3:.4f} ms/event = {events / replay:.1f} "
           f"events/s/device", flush=True)
-    return launches, seconds, replay / T_MAIN * 1e3
+    return launches, seconds, replay / T_MAIN * 1e3, out
 
 
 def backends_and_golden(torch):
@@ -1709,11 +1742,229 @@ def profile_window(torch, table, replay_ms, steps=200):
         print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
 
 
+# --------------------------------------------------------------------------
+# phases 11-12: device traces and the figure sweeps through the executor
+# --------------------------------------------------------------------------
+
+def _digest(x):
+    """SHA-256 of an array's values (integers as little-endian int64,
+    floats as their float32 bits), as tests/test_torch_trace_device.py
+    computes JAX's."""
+    import hashlib
+    x = np.asarray(x)
+    x = x.view(np.int32) if x.dtype == np.float32 else x
+    return hashlib.sha256(x.astype("<i8").tobytes()).hexdigest()
+
+
+def device_traces(torch):
+    """The threefry generator on the card against the CPU and JAX's digests."""
+    from repro_torch.traces import device as gen
+    from repro_torch.traces.specs import WORKLOAD_NAMES
+    want = json.loads((ROOT / "src/repro_torch/testdata/trace_digests.json").read_text())
+    check((want["T"], want["seed"]) == (TRACE_T, 0), f"digests for {want['T']}, {want['seed']}")
+    draws = ("raw", "u", "uni", "starts", "bases", "spans")
+    tail_n = tail_diff = 0
+    gap_rel, gen_s = 0.0, 0.0
+    for name in WORKLOAD_NAMES:
+        tp = gen.system_params((name,), 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ga, gg, gp = gen.generate(gen.to_tensors(tp, DEVICE), TRACE_T, parts=True)
+        torch.cuda.synchronize()
+        gen_s += time.perf_counter() - t0
+        ca, cg, cp = gen.generate(gen.to_tensors(tp, "cpu"), TRACE_T, parts=True)
+        for k in draws:
+            a, b = gp[k].cpu().numpy(), cp[k].numpy()
+            check(np.array_equal(a.view(np.int32), b.view(np.int32)),
+                  f"{name}: draw {k} differs between the card and the CPU")
+            check(_digest(a[0]) == want["workloads"][name][k],
+                  f"{name}: draw {k} differs from JAX's (digest)")
+        tail = gp["tail"].cpu().numpy()
+        check(np.array_equal(tail, cp["tail"].numpy()), f"{name}: tail masks differ")
+        ga, ca = ga.cpu().numpy(), ca.numpy()
+        check(np.array_equal(ga[~tail], ca[~tail]),
+              f"{name}: addresses outside the zipf tail differ between the card and the CPU")
+        check(_digest(np.where(tail, -1, ga)[0]) == want["workloads"][name]["addrs_outside_tail"],
+              f"{name}: addresses outside the zipf tail differ from JAX's (digest)")
+        tail_n += int(tail.sum())
+        tail_diff += int((ga != ca).sum())
+        gg = gg.cpu().numpy()
+        gap_rel = max(gap_rel, float(np.max(np.abs(gg - cg.numpy()) / cg.numpy())))
+    print(f"device traces: {len(WORKLOAD_NAMES)} workloads x {TRACE_T} events, every draw "
+          f"and every address outside the zipf tail bit-identical on the card, on the CPU "
+          f"and to JAX's digests; zipf-tail addresses {tail_n}, of which "
+          f"{tail_diff} ({tail_diff / max(tail_n, 1):.4%}) differ card vs CPU; largest "
+          f"relative gap difference card vs CPU {gap_rel:.3e}; generation on the card "
+          f"{gen_s:.3f} s ({len(WORKLOAD_NAMES) * TRACE_T / gen_s:.1f} events/s, one "
+          f"workload a call)", flush=True)
+
+
+def seed_golden_traces():
+    """Hand the numpy traces JAX's figure golden ran on to the executor
+    (``store_traces``): those numpy's ``Generator.zipf`` draws (zipf_a > 1)
+    from ``figures_numpy_traces.npz`` (numpy releases sample zipf
+    differently), the rest generated here and held to the golden's digests.
+    Every trace is generated here once, cold; returns each one's host
+    generation seconds, keyed as the executor's memo."""
+    import hashlib
+    from repro_torch.experiments import store_traces
+    from repro_torch.traces import host
+    data = ROOT / "src/repro_torch/testdata"
+    golden = json.loads((data / "figures_golden.json").read_text())
+    stored = np.load(data / "figures_numpy_traces.npz")
+    keys = {k.rsplit(":", 1)[0] for k in stored.files}
+    def digest(a, g):
+        h = hashlib.sha256(np.asarray(a, np.int64).tobytes())
+        h.update(np.asarray(g, np.float32).tobytes())
+        return h.hexdigest()
+
+    mismatched, redrawn, traces, gen_s = [], 0, {}, {}
+    for key, want in golden["numpy_traces"].items():
+        w, T, seed = key.split(":")
+        k = (w, int(T), int(seed))
+        t0 = time.perf_counter()
+        a, g = host.generate(*k)
+        gen_s[k] = time.perf_counter() - t0
+        if key in keys:
+            redrawn += digest(a, g) == want
+            a = stored[key + ":lines"].astype(np.int64) * 64
+            g = stored[key + ":gaps"]
+        if digest(a, g) != want:
+            mismatched.append(key)
+        traces[k] = (a, g)
+    check(not mismatched, f"numpy {np.__version__} draws other traces than JAX's golden "
+          f"(numpy {golden['numpy']}) for {mismatched}")
+    store_traces(traces)
+    print(f"numpy traces of the figures: {len(golden['numpy_traces'])}, generated here in "
+          f"{sum(gen_s.values()):.3f} s; {len(keys)} drawn through Generator.zipf come from "
+          f"the golden's file (numpy {golden['numpy']}), and this machine's numpy "
+          f"{np.__version__} redraws {redrawn} of them equal; the other "
+          f"{len(golden['numpy_traces']) - len(keys)} are generated here, equal to JAX's "
+          f"inputs", flush=True)
+    return gen_s
+
+
+def _ratios(derived):
+    return [float(v.split("=")[1]) for v in derived.split(";")]
+
+
+def _host_gen_s(res, gen_s):
+    """Host generation seconds of the numpy traces a figure's points use."""
+    from repro_torch.traces import node_seed
+    keys = {(w, p.T, node_seed(p.seed, i)) for p in res.points
+            for i, w in enumerate(p.workloads)}
+    return sum(gen_s[k] for k in keys)
+
+
+def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s):
+    """One figure's run held to JAX's golden, then its engine row (the
+    per-point engine check and the graph-vs-eager check, outside the
+    counted figure runs)."""
+    info = res.info
+    check(info.planned_groups == 1 and info.compiles == 1,
+          f"{name} {backend}: {info.compiles} captures for {info.planned_groups} groups")
+    for g in info.groups:
+        check(g["launches"] == g["T_pad"], f"{name} {backend}: fused_cache_step launched "
+              f"{g['launches']} times in a group of t_pad {g['T_pad']}")
+    from repro_torch.benchmarks.common import XCHECK_T
+    kw = {} if name == "fig14_mixes" else {"check_points": FIG_ENGINE_POINTS}
+    t0 = time.perf_counter()
+    row = mod.engine(res, device=DEVICE, **kw)
+    engine_s = time.perf_counter() - t0
+    rows = rows + [row]
+    sc = row["shard_check"]
+    check(sc["primary"] == "graph" and sc["alt"] == "eager" and sc["bit_exact"],
+          f"{name} {backend}: graph vs eager at T {sc['T']}: {sc}")
+    check(sc["T"] == min(XCHECK_T, res.points[0].T) and sc["launches"] == sc["T"],
+          f"{name} {backend}: the graph-vs-eager check's graphed group launched "
+          f"fused_cache_step {sc['launches']} times at T {sc['T']}")
+    want = golden["figures"][name][backend]
+    got = {r["name"]: r["derived"] for r in rows}
+    check(list(got) == list(want["derived"]), f"{name}: rows {list(got)}")
+    exact = sum(got[k] == v for k, v in want["derived"].items())
+    if backend == "numpy":
+        check(got == want["derived"], f"{name} numpy: derived differ from JAX's: "
+              f"{[(k, got[k], v) for k, v in want['derived'].items() if got[k] != v]}")
+        for pt, gp in zip(res.points, want["points"]):
+            m = res.metrics_for(pt)
+            check([list(c) for c in pt.coords] == gp["coords"], f"{name}: point order")
+            check(np.array_equal(m["cache_occupancy"], np.asarray(gp["cache_occupancy"], np.float32)),
+                  f"{name} {pt.coords}: cache_occupancy differs from JAX's")
+            for k in ("ipc", "fam_latency"):
+                check(np.allclose(m[k], np.asarray(gp[k], np.float32), rtol=golden["rtol"], atol=0),
+                      f"{name} {pt.coords}: {k} {m[k]} vs JAX's {gp[k]}")
+        if name == "fig08_blocksize":
+            for k, v in grid_out.items():
+                got_k = np.stack([res.metrics_for(p)[k] for p in res.points])
+                check(np.array_equal(got_k, v), f"fig08 through the executor differs from "
+                      f"the main path's grid on {k}")
+    else:
+        worst = 0.0
+        for k, v in want["derived"].items():
+            if k.endswith("_engine"):
+                check(got[k] == v, f"{name} device: engine row {got[k]} != {v}")
+                continue
+            for a, b in zip(_ratios(got[k]), _ratios(v)):
+                worst = max(worst, abs(np.log(a / b)))
+        check(worst <= FIG_LOG_TOL, f"{name} device: a ratio differs from JAX's by "
+              f"|log| {worst:.4f} > {FIG_LOG_TOL}: {got} vs {want['derived']}")
+    nodes = info.groups[0]["N"]
+    if backend == "numpy":
+        # the executor read the traces from its memo: host generation, timed
+        # cold once when the memo was filled, is not in its wall
+        host = _host_gen_s(res, gen_s)
+        gen = (f"numpy traces from the memo, their host generation {host:.3f} s outside "
+               f"the wall; with it {info.events / (info.wall_s + host):.1f} events/s/device")
+    else:
+        gen = f"trace generation on the card {info.trace_device_s:.3f} s inside the wall"
+    print(f"figure {name} {backend}: {len(want['derived'])} rows, {exact} derived "
+          f"strings equal to JAX's" + ("" if backend == "numpy" else
+                                        f" (every ratio within |log| {worst:.4f})")
+          + f"; {info.systems} systems x {nodes} nodes x {res.points[0].T} events; executor "
+          f"wall {info.wall_s:.3f} s (capture {info.compile_s:.3f} s, replays "
+          f"{info.run_s:.3f} s, host staging {info.trace_gen_s:.3f} s) = "
+          f"{info.events / info.wall_s:.1f} events/s/device; {gen}; driver's figure run "
+          f"{wall:.3f} s; engine row {engine_s:.3f} s (per-point check of "
+          f"{row.get('check', {}).get('points_checked', 0)} points, graph == eager at T "
+          f"{sc['T']} on {sc['systems']} systems)", flush=True)
+    for r in rows:
+        print(f"  {r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"")
+
+
+def figures_path(torch, grid_out, gen_s):
+    """Phase 12: the three figures with both trace backends through their
+    drivers, the counts read around the six figure runs alone; then each
+    run's checks and engine row. Returns the figure runs' launches of
+    fused_cache_step."""
+    import importlib
+    golden = json.loads((ROOT / "src/repro_torch/testdata/figures_golden.json").read_text())
+    runs = []
+    reset_counts()
+    for name in FIGURES:
+        mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+        for backend in ("numpy", "device"):
+            t0 = time.perf_counter()
+            rows, res = mod.run_figure(quick=True, trace_backend=backend, device=DEVICE)
+            runs.append((name, backend, mod, rows, res, time.perf_counter() - t0))
+    launched = counts()
+    launches = launched.pop("fused_cache_step")
+    planned = sum(g["T_pad"] for *_, res, _ in runs for g in res.info.groups)
+    check(launches == planned, f"the six figure runs launched fused_cache_step {launches} "
+          f"times, their groups' t_pad add to {planned}")
+    check(not any(launched.values()), f"unexpected launches on the figure path: {launched}")
+    print(f"figure path: fused_cache_step launched {launches} times in the six figure "
+          f"runs (t_pad a group; the checks below are not counted)", flush=True)
+    for run in runs:
+        _figure_checks(*run, golden, grid_out, gen_s)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print the profiler's op table of the grid's window")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1745,10 +1996,15 @@ def main(argv=None):
     phases.run("tiered_kv_profile", tiered_kv_profile, torch, kv_call_s)
     moe_launched = phases.run("expert_tiering", expert_path, torch)
     serve_launched = phases.run("serving", serving_path, torch)
-    launches, _, replay_ms = phases.run("main_path", main_path, torch)
+    gen_s = seed_golden_traces()
+    launches, _, replay_ms, grid_out = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
     phases.run("graph_profile", profile_window, torch, args.profile, replay_ms)
+    phases.run("device_traces", device_traces, torch)
+    phases.run("figures", figures_path, torch, grid_out, gen_s)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
+    print(f"total: {sum(phases.seconds.values()):.3f} s in phases, "
+          f"{time.perf_counter() - t_start:.3f} s wall")
     print(f"profiler windows: {len(lead_in_lost)}, lead-in records lost at their start "
           f"{sum(lead_in_lost)} of {LEAD_IN * len(lead_in_lost)} (per window, in order: "
           f"{lead_in_lost})")

@@ -344,6 +344,24 @@ class FamConfig:
         blocks = self.dram_cache_bytes // self.block_bytes
         return max(1, blocks // self.cache_ways)
 
+    def geometry_free_shape(self) -> Tuple:
+        """The shape-deciding fields minus the cache geometry: what no
+        padding unifies. ``num_sets``, ``cache_ways`` and ``block_bytes``
+        are not here: the planner pads the cache to the largest swept
+        geometry and each system's own geometry rides in ``FamParams``."""
+        return (self.prefetch_queue, self.prefetch_degree,
+                self.spp_signature_bits, self.spp_pattern_entries,
+                self.spp_signature_entries, self.spp_max_lookahead,
+                self.core_pf_degree, self.completions_per_step,
+                self.core_fill_entries, self.kernel_backend,
+                self.telemetry)
+
+    def static_shape(self) -> Tuple:
+        """This config's own cache geometry (as the allocation) plus the
+        geometry-free shape: configs with equal static shapes run one
+        simulator program."""
+        return (self.num_sets, self.cache_ways) + self.geometry_free_shape()
+
     @property
     def cxl_min_latency_cycles(self) -> int:
         return int(self.cxl_min_latency_ns * self.clock_ghz)

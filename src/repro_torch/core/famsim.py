@@ -529,13 +529,16 @@ def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
 def _make_run_masked(cfg: FamConfig, num_nodes: int,
                      pad_sets: Optional[int] = None,
                      pad_ways: Optional[int] = None,
-                     policies: Optional[PolicySet] = None):
+                     policies: Optional[PolicySet] = None,
+                     eager: bool = False):
     """Dynamic-T runner for padded traces: run(params (S,), addrs
     (S, N, T_pad), gaps, t_true (S,), warm_start (S,)) simulates only the
     first ``t_true`` events of each system; the padded tail steps run with
     ``live=False`` and are exact no-ops, so every metric is bit-identical
     to an unpadded run of length ``t_true``. ``warm_start`` is the first
     accumulated event, ``int(t_true * warmup_frac)`` computed on the host.
+    ``eager``: see :func:`run_steps`. One call is one compile group of
+    :mod:`repro_torch.experiments` (one CUDA graph capture on the card).
     """
     def run(p: FamParams, addrs, gaps, t_true, warm_start):
         S, N, T_pad = addrs.shape
@@ -545,7 +548,7 @@ def _make_run_masked(cfg: FamConfig, num_nodes: int,
         live = i < t_true[None, :]
         warm = (i >= warm_start[None, :]) & live
         return _simulate(cfg, num_nodes, p, addrs, gaps, warm, live,
-                         pad_sets, pad_ways, policies)
+                         pad_sets, pad_ways, policies, eager)
 
     return run
 
@@ -607,9 +610,12 @@ def simulate(cfg: FamConfig, flags: SimFlags, workload_names, T: int = 60_000,
              seed: int = 0, trace_backend: str = "numpy",
              policies: Optional[PolicySet] = None,
              device="cuda") -> Dict[str, np.ndarray]:
-    """Generate the node traces (``numpy`` backend) and run one system."""
-    from repro_torch.traces import system_traces
-    addrs, gaps = system_traces(workload_names, T, seed, backend=trace_backend)
+    """Generate the node traces and run one system. The default trace
+    backend is ``"numpy"``, as in the reference; ``"device"`` generates
+    them with the threefry generator on ``device``."""
+    from repro_torch.traces.backend import system_traces
+    addrs, gaps = system_traces(workload_names, T, seed, backend=trace_backend,
+                                device=device)
     run = build_sim(cfg, flags, len(workload_names), policies=policies,
                     device=device)
     return {k: v.cpu().numpy() for k, v in run(addrs, gaps).items()}

@@ -34,6 +34,7 @@ class TokenBucketAdaptation:
 
     kind = "adaptation"
     name = "token_bucket"
+    compile_tag = "adaptation:throttle"
 
     def params_of(self, cfg):
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)
@@ -69,6 +70,7 @@ class StaticRateAdaptation:
 
     kind = "adaptation"
     name = "static"
+    compile_tag = "adaptation:static"
 
     def params_of(self, cfg):
         return {"rate": torch.tensor(1.0, dtype=torch.float32)}

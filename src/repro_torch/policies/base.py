@@ -84,6 +84,12 @@ class PolicySet:
     def impls(self) -> ResolvedPolicies:
         return ResolvedPolicies(*(self.impl(k) for k in POLICY_KINDS))
 
+    def compile_tags(self) -> Tuple[str, ...]:
+        """One tag per kind: policies that run one program share a tag
+        (``fifo`` and ``wfq`` are both ``scheduler:chain``). The planner
+        keys compile groups on it."""
+        return tuple(self.impl(k).compile_tag for k in POLICY_KINDS)
+
     def numeric_params(self, cfg) -> Dict[str, Dict[str, torch.Tensor]]:
         """``{kind: {param: 0-d CPU tensor}}``: defaults from each policy's
         ``params_of(cfg)`` with ``overrides`` applied (cast to the default

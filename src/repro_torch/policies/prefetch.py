@@ -17,6 +17,7 @@ class SppPrefetch:
 
     kind = "prefetch"
     name = "spp"
+    compile_tag = "prefetch:spp"
 
     def params_of(self, cfg):
         return {"confidence_threshold":

@@ -19,6 +19,7 @@ class LruReplacement:
 
     kind = "replacement"
     name = "lru"
+    compile_tag = "replacement:lru"
     fused_mode = "lru"
 
     def params_of(self, cfg):
@@ -53,6 +54,7 @@ class SrripReplacement:
 
     kind = "replacement"
     name = "srrip"
+    compile_tag = "replacement:srrip"
     fused_mode = "srrip"
 
     MAX_RRPV = 3

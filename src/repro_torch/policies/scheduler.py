@@ -23,6 +23,8 @@ class ChainScheduler:
     """FIFO / WFQ over the shared service-chain model."""
 
     kind = "scheduler"
+    # fifo and wfq are one program (use_wfq is a numeric param)
+    compile_tag = "scheduler:chain"
 
     def __init__(self, name: str, use_wfq: bool):
         self.name = name
@@ -52,6 +54,7 @@ class StrictScheduler:
 
     kind = "scheduler"
     name = "strict"
+    compile_tag = "scheduler:strict"
 
     def params_of(self, cfg):
         return {"backlog_cap": torch.tensor(cfg.wfq_backlog_cap, dtype=torch.float32)}

@@ -115,12 +115,10 @@ def generate(name: str, T: int, seed: int = 0, base_ipc: float = 2.0
     return addrs.astype(np.int64), gaps.astype(np.float32)
 
 
-def system_traces(workloads: Sequence[str], T: int, seed: int,
-                  backend: str = "numpy") -> Tuple[np.ndarray, np.ndarray]:
-    """(N, T) node traces for one system, per-node seeds via ``node_seed``.
-    Only the ``numpy`` backend is ported; the ``device`` backend waits for
-    the threefry port."""
-    if backend != "numpy":
-        raise ValueError(f"trace backend {backend!r} is not ported; use 'numpy'")
+def system_traces(workloads: Sequence[str], T: int, seed: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(N, T) node traces for one system, per-node seeds via ``node_seed``
+    (the ``numpy`` backend; :mod:`repro_torch.traces.backend` dispatches
+    between backends)."""
     pairs = [generate(w, T, node_seed(seed, i)) for i, w in enumerate(workloads)]
     return (np.stack([a for a, _ in pairs]), np.stack([g for _, g in pairs]))

@@ -1,0 +1,271 @@
+"""The port's experiment API (``repro_torch.experiments``) against
+``repro.experiments`` on the CPU.
+
+* Plans: the port's ``plan()`` of fig08, fig14 and fig16 (quick and full)
+  equals the reference's — groups, indices, padded geometry, ``t_pad``,
+  ``s_pad`` and ``describe()`` — modulo the kernel-backend entry of the
+  compile key (``"cuda"`` in the port where the reference says ``"xla"``).
+  ``t_bucket`` / ``s_bucket`` equal the reference's and never truncate.
+* Execution: ``execute`` with numpy traces equals the reference's
+  ``execute`` bit for bit, on the reference's small experiment (LU/bfs x
+  base/dram, T 900, ``tests/test_experiments.py``), on a mixed-T group and
+  on a group whose system axis is padded; the seed threads through to the
+  traces; with device traces the metrics stay within DEVICE_RTOL of the
+  reference's and no trace is generated on the host.
+"""
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(REPO), str(REPO / "src")]
+
+from repro import experiments as jx  # noqa: E402
+from repro.configs.base import FamConfig as JFamConfig  # noqa: E402
+from repro.core.famsim import SimFlags as JSimFlags  # noqa: E402
+from repro_torch import experiments as tx  # noqa: E402
+from repro_torch.configs.base import FamConfig  # noqa: E402
+from repro_torch.core import famsim as tfam  # noqa: E402
+from repro_torch.policies import PolicySet, SimFlags  # noqa: E402
+from repro_torch.traces import node_seed, system_traces  # noqa: E402
+
+T = 900
+#: device-backend metrics vs the reference's: the port's zipf-tail ranks
+#: and gaps follow torch's float32 log/exp/erfinv, not XLA's (see
+#: tests/test_torch_trace_device.py); measured here at most 1.9e-2
+#: (prefetches_issued), 1.6e-2 (cache_occupancy), 2.2e-3 (ipc)
+DEVICE_RTOL = 5e-2
+KERNEL_TAG = 9      # index of kernel_backend in geometry_free_shape()
+
+
+def _flags(mod_flags):
+    return {"base": mod_flags(core_prefetch=False, dram_prefetch=False),
+            "dram": mod_flags()}
+
+
+def _small(mod, flags_cls, cfg_cls, kernel_backend, **kw):
+    """The reference's small experiment (tests/test_experiments.py:27-37),
+    its axes or others given by ``kw``."""
+    axes = kw.pop("axes", None) or (
+        mod.workload_axis(["LU", "bfs"]),
+        mod.flag_axis("variant", _flags(flags_cls)))
+    return mod.Experiment(name="small", T=kw.pop("T", T),
+                          base=dataclasses.replace(cfg_cls(), kernel_backend=kernel_backend),
+                          axes=axes, **kw)
+
+
+def _pair(**kw):
+    """(reference experiment, port experiment) from one axis recipe."""
+    recipe = kw.pop("recipe", None)
+    j_kw, t_kw = dict(kw), dict(kw)
+    if recipe is not None:
+        j_kw["axes"], t_kw["axes"] = recipe(jx, JSimFlags), recipe(tx, SimFlags)
+    return (_small(jx, JSimFlags, JFamConfig, "xla", **j_kw),
+            _small(tx, SimFlags, FamConfig, "cuda", **t_kw))
+
+
+def _strip(shape):
+    return shape[:2 + KERNEL_TAG] + shape[3 + KERNEL_TAG:]
+
+
+def _assert_plans_equal(jplan, tplan):
+    assert tplan.num_groups == jplan.num_groups
+    for jg, tg in zip(jplan.groups, tplan.groups):
+        assert (tg.indices, tg.t_pad, tg.s_pad, tg.pad_sets, tg.pad_ways) == \
+            (jg.indices, jg.t_pad, jg.s_pad, jg.pad_sets, jg.pad_ways)
+        assert tg.key.static_shape[2 + KERNEL_TAG] == "cuda"
+        assert jg.key.static_shape[2 + KERNEL_TAG] == "xla"
+        assert _strip(tg.key.static_shape) == _strip(jg.key.static_shape)
+        assert (tg.key.num_nodes, tg.key.t_bucket) == (jg.key.num_nodes, jg.key.t_bucket)
+    jd, td = jplan.describe(), tplan.describe()
+    for a, b in zip(jd, td):
+        a, b = dict(a), dict(b)
+        assert a.pop("static_shape").replace("'xla'", "'cuda'") == b.pop("static_shape")
+        assert a == b
+    assert (tplan.events(), tplan.padded_events(), tplan.padded_systems()) == \
+        (jplan.events(), jplan.padded_events(), jplan.padded_systems())
+
+
+@pytest.mark.parametrize("quick", [True, False])
+@pytest.mark.parametrize("fig", ["fig08_blocksize", "fig14_mixes", "fig16_cachesize"])
+def test_figure_plans_equal_reference(fig, quick):
+    import importlib
+    ref = importlib.import_module(f"benchmarks.{fig}")
+    port = importlib.import_module(f"repro_torch.benchmarks.{fig}")
+    for backend in ("device", "numpy"):
+        jplan = ref.experiment(quick=quick, trace_backend=backend).plan()
+        tplan = port.experiment(quick=quick, trace_backend=backend).plan()
+        assert tplan.num_groups == 1 and tplan.trace_backend == backend
+        assert [p.coords for p in tplan.points] == [p.coords for p in jplan.points]
+        _assert_plans_equal(jplan, tplan)
+
+
+def test_buckets_equal_reference():
+    for n in list(range(1, 300)) + [1023, 1024, 1025, 12_000, 16_000, 100_001]:
+        assert tx.t_bucket(n) == jx.t_bucket(n) >= n
+        assert tx.t_bucket(n) <= max(1024, 1.5 * n)
+        assert tx.s_bucket(n) == jx.s_bucket(n) >= n
+        assert tx.s_bucket(n) <= max(4, 1.25 * n)
+    for bad in (0, -3):
+        with pytest.raises(ValueError):
+            tx.t_bucket(bad)
+        with pytest.raises(ValueError):
+            tx.s_bucket(bad)
+
+
+def test_mixed_policies_split_groups_as_reference():
+    """Policy choice splits a group where its compile tag differs (strict,
+    srrip, static), and fifo/wfq share one, as in the reference."""
+    def recipe(mod, flags_cls):
+        pset = mod.PolicySet
+        return (mod.workload_axis(["LU"]),
+                mod.policy_axis({"fifo": pset(), "wfq": pset(scheduler="wfq"),
+                                 "strict": pset(scheduler="strict"),
+                                 "srrip": pset(replacement="srrip"),
+                                 "static": pset(adaptation="static")}))
+    jexp, texp = _pair(recipe=recipe)
+    _assert_plans_equal(jexp.plan(), texp.plan())
+    assert texp.plan().num_groups == 4
+    assert PolicySet(scheduler="wfq").compile_tags() == \
+        ("prefetch:spp", "scheduler:chain", "replacement:lru", "adaptation:throttle")
+
+
+def _assert_results_equal(jres, tres):
+    assert [p.coords for p in jres.points] == [p.coords for p in tres.points]
+    for jp, tp in zip(jres.points, tres.points):
+        jm, tm = jres.metrics_for(jp), tres.metrics_for(tp)
+        assert sorted(jm) == sorted(tm)
+        for k in jm:
+            np.testing.assert_array_equal(np.asarray(jm[k]), tm[k],
+                                          err_msg=f"{jp.coords} {k}")
+
+
+@pytest.fixture(scope="module")
+def small_results():
+    jexp, texp = _pair()
+    from repro_torch.experiments import executor
+    executor._TRACE_CACHE.clear()
+    return (jexp.run(trace_backend="numpy"),
+            texp.run(trace_backend="numpy", device="cpu", cross_check_shard=True,
+                     assert_compiles=True))
+
+
+def test_execute_numpy_bit_exact(small_results):
+    jres, tres = small_results
+    _assert_results_equal(jres, tres)
+    info = tres.info
+    assert (info.planned_groups, info.compiles, info.xla_compiles) == (1, 0, -1)
+    assert info.systems == 4 and info.events == 4 * T
+    # two traces generated (LU, bfs); the base and dram variants share them
+    assert info.host_trace_events == 2 * T
+    assert info.shard_check == {"group": 0, "primary": "steps", "alt": "eager",
+                                "systems": 4, "bit_exact": True}
+    assert info.spans is None
+    assert info.as_dict()["groups"][0]["launches"] == 0     # CPU: plain version
+
+
+def test_result_lookup(small_results):
+    _, tres = small_results
+    m = tres.get(workload="bfs", variant="dram")
+    assert m is tres.metrics_for(tres.points[3])
+    assert set(m) >= {"ipc", "fam_latency", "cache_occupancy"} and m["ipc"].shape == (1,)
+    assert tres.t_pad_for(tres.points[0]) == T
+    with pytest.raises(KeyError, match="axes present"):
+        tres.get(workload="bfs")
+    with pytest.raises(KeyError):
+        tres.get(workload="mg", variant="dram")
+
+
+def test_execute_mixed_T_group_bit_exact():
+    """Two true lengths in one T bucket run as one group at t_pad, the
+    shorter one masked: equal to the reference's masked run."""
+    def recipe(mod, flags_cls):
+        return (mod.grid_axis("len", {"short": {"T": 500}, "long": {"T": 700}}),
+                mod.workload_axis(["LU", "bfs"]))
+    jexp, texp = _pair(recipe=recipe)
+    tplan = texp.plan()
+    assert tplan.num_groups == 1 and tplan.groups[0].t_pad == 700
+    jres = jexp.run(trace_backend="numpy")
+    tres = texp.run(trace_backend="numpy", device="cpu")
+    _assert_results_equal(jres, tres)
+    assert tres.info.padded_events == 2 * 200
+
+
+def test_execute_padded_systems_bit_exact():
+    """Nine systems pad to the canonical width 10 (``s_bucket(9)``): the
+    padded system is dropped, the rest equal the reference's."""
+    def recipe(mod, flags_cls):
+        return (mod.workload_axis(["LU", "bfs", "mg"]),
+                mod.flag_axis("variant", {**_flags(flags_cls),
+                                          "adapt": flags_cls(bw_adapt=True)}))
+    jexp, texp = _pair(recipe=recipe, T=300)
+    tplan = texp.plan()
+    assert tplan.groups[0].s_pad == 10 and tplan.padded_systems() == 1
+    jres = jexp.run(trace_backend="numpy")
+    tres = texp.run(trace_backend="numpy", device="cpu")
+    _assert_results_equal(jres, tres)
+    assert tres.info.padded_systems == 1 and tres.info.groups[0]["S_exec"] == 10
+
+
+def test_seed_threads_through_to_traces():
+    """Points differing only in seed simulate different traces: each equals
+    build_sim on the numpy traces of node_seed(seed, node)."""
+    def recipe(mod, flags_cls):
+        return (mod.seed_axis([0, 5]),)
+    _, texp = _pair(recipe=recipe, T=300, workloads=("LU", "bfs"))
+    res = texp.run(trace_backend="numpy", device="cpu")
+    a, b = res.get(seed=0), res.get(seed=5)
+    assert not np.array_equal(a["fam_latency"], b["fam_latency"])
+    for seed in (0, 5):
+        addrs, gaps = system_traces(["LU", "bfs"], 300, seed)
+        assert node_seed(seed, 1) != node_seed(seed, 0)
+        want = tfam.build_sim(texp.base, texp.flags, 2, device="cpu")(addrs, gaps)
+        for k, v in want.items():
+            np.testing.assert_array_equal(v.numpy(), res.get(seed=seed)[k])
+
+
+def test_execute_device_backend_within_tolerance():
+    """Device traces: generated on the executing device at t_pad (none on
+    the host), the metrics within DEVICE_RTOL of the reference's."""
+    def recipe(mod, flags_cls):
+        return (mod.workload_axis(["XSBench", "cc"]),
+                mod.flag_axis("variant", _flags(flags_cls)))
+    jexp, texp = _pair(recipe=recipe)
+    jres = jexp.run(trace_backend="device")
+    tres = texp.run(trace_backend="device", device="cpu")
+    assert tres.info.host_trace_events == 0 and tres.info.trace_backend == "device"
+    assert tres.info.trace_device_s > 0
+    for jp, tp in zip(jres.points, tres.points):
+        for k, v in jres.metrics_for(jp).items():
+            np.testing.assert_allclose(tres.metrics_for(tp)[k], np.asarray(v),
+                                       rtol=DEVICE_RTOL, atol=0, err_msg=f"{jp.coords} {k}")
+
+
+def test_execute_refuses_what_is_not_ported():
+    _, texp = _pair()
+    with pytest.raises(NotImplementedError, match="several devices"):
+        texp.run(devices=2, device="cpu")
+    with pytest.raises(ValueError, match="unknown trace backend"):
+        texp.run(trace_backend="pcg", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            texp.run()
+    keys = tx.group_cache_keys(texp.plan(), device="cpu")
+    assert len(keys) == 1 and keys[0][6] == "steps"
+
+
+def test_cli_plan_equals_reference(capsys):
+    """``python -m repro_torch.benchmarks.run --plan`` prints the
+    reference's ``--plan`` lines for fig08/14/16, modulo the kernel tag."""
+    from benchmarks.run import main as jmain
+    from repro_torch.benchmarks.run import main as tmain
+    jmain(["--plan", "fig08", "fig14", "fig16"])
+    want = capsys.readouterr().out.replace("'xla'", "'cuda'")
+    tmain(["--plan"])
+    assert capsys.readouterr().out == want
+    tmain(["--plan", "--only", "fig14", "--full"])
+    assert capsys.readouterr().out.startswith("fig14_mixes: 1 group(s), 42 points")

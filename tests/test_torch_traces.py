@@ -42,5 +42,11 @@ def test_system_traces_bit_identical():
     for a, b in zip(j_system_traces(wl, 1500, 4, backend="numpy"),
                     system_traces(wl, 1500, 4)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="not ported"):
-        system_traces(wl, 10, 0, backend="device")
+    with pytest.raises(ValueError, match="unknown trace backend"):
+        system_traces(wl, 10, 0, backend="pcg")
+    # the device backend dispatches to the threefry generator
+    from repro_torch.traces import device as tdevice
+    got = system_traces(wl, 1500, 4, backend="device", device="cpu")
+    for a, b in zip(got, tdevice.system_traces(wl, 1500, 4, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+    assert got[0].shape == (3, 1500) and got[1].dtype == np.float32
