@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # the checks below, 5-10 min on an H100
+    python3 chip_smoke.py            # the checks below, 10-15 min on an H100
     python3 chip_smoke.py --profile  # also the profiler's table of the grid's ops
 
 Phases, in order (each prints its seconds; any failed check raises, exit
@@ -125,7 +125,26 @@ code != 0):
    host generation, which the memo keeps out of the wall); then each
    run's engine row through the driver's ``engine``: the per-point check
    (FIG_ENGINE_POINTS points a figure at full T) exact, and the grid at
-   ``XCHECK_T`` events graphed and re-run step by step: bit-exact.
+   ``XCHECK_T`` events graphed and re-run step by step: bit-exact;
+13. fig10, fig12 and fig15 the same way (T 10,000; 3, 2 and 1 compile
+   groups, one capture a group; device traces for fig15 only, cut for
+   time: NEW_FIG_BACKENDS), the counts read around their four runs
+   alone, every check of phase 12 against the golden; each engine row's
+   graph-vs-eager check at ``XCHECK_T`` and, on the numpy-trace run, a
+   per-point check of NEW_FIG_ENGINE_POINTS point;
+14. fig12's policy matrix from the golden file (numpy traces, T 2,000):
+   {fifo, wfq, strict} x {spp, nextline, bestoffset} on the ``cuda`` cache
+   step, every row equal to JAX's and every point's counters exact, floats
+   within the golden's rtol; the matrix's ``spp+wfq`` rows and points
+   equal to a plain fig12 run's ``w2`` ones at that T; the golden's
+   ``random`` replacement combo (6 workloads x 4 nodes, the cache cut to
+   64 KB) on the ``torch`` cache step, every point against JAX's the same
+   way; ``random`` with ``kernel_backend="cuda"`` refused before any
+   launch;
+15. the throughput benchmark (``bench_famsim``): the quick grid on both
+   backends, BENCH_REPEATS executions each, digests equal; then the full
+   grid (fig08 over all 19 workloads, 228 systems x 12,000 events) on
+   ``cuda`` once; events/s/device, best replay seconds and captures.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last two lines of standard output are the kernel table
@@ -210,10 +229,21 @@ FLASH_D128_ARCH = "yi-9b"
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
 SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|, rtol 0.05
-# the figure sweeps (phase 12) against JAX's golden values
+# the figure sweeps (phases 12-13) against JAX's golden values
 FIGURES = ("fig08_blocksize", "fig14_mixes", "fig16_cachesize")
+NEW_FIGURES = ("fig10_bw_adaptation", "fig12_wfq", "fig15_allocation")
+FIG_GROUPS = {"fig10_bw_adaptation": 3, "fig12_wfq": 2}   # one per node count; else 1
 FIG_LOG_TOL = 0.01             # device traces: |log(port / JAX)| of every printed ratio
 FIG_ENGINE_POINTS = 2          # per-point engine check (the reference: 12 / 4; cut for time)
+# phase 13's per-point check: 1 point a figure, on its numpy-trace run (the
+# reference checks none for these three)
+NEW_FIG_ENGINE_POINTS = 1
+# phase 13's trace backends: device traces for fig15 only, cut for time
+# (fig10's and fig12's would add ~90 s: ~800 s the run)
+NEW_FIG_BACKENDS = {"fig10_bw_adaptation": ("numpy",), "fig12_wfq": ("numpy",),
+                    "fig15_allocation": ("numpy", "device")}
+# the throughput benchmark (phase 15): executions a backend on the quick grid
+BENCH_REPEATS = 3
 TRACE_T = 12_000               # phase 11's trace length
 PROFILE_MARGIN_S = 0.1         # idle seconds at each end of a profiler window
 LEAD_IN, LEAD_IN_CYCLES = 16, 1_000_000   # spin kernels opening a window, ~0.5 ms each
@@ -1861,16 +1891,24 @@ def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s)
     per-point engine check and the graph-vs-eager check, outside the
     counted figure runs)."""
     info = res.info
-    check(info.planned_groups == 1 and info.compiles == 1,
+    groups = FIG_GROUPS.get(name, 1)
+    check(info.planned_groups == groups and info.compiles == groups,
           f"{name} {backend}: {info.compiles} captures for {info.planned_groups} groups")
     for g in info.groups:
         check(g["launches"] == g["T_pad"], f"{name} {backend}: fused_cache_step launched "
               f"{g['launches']} times in a group of t_pad {g['T_pad']}")
     from repro_torch.benchmarks.common import XCHECK_T
-    kw = {} if name == "fig14_mixes" else {"check_points": FIG_ENGINE_POINTS}
+    if name in NEW_FIGURES:
+        kw = {"check_points": NEW_FIG_ENGINE_POINTS if backend == "numpy" else 0}
+    else:
+        kw = {} if name == "fig14_mixes" else {"check_points": FIG_ENGINE_POINTS}
     t0 = time.perf_counter()
     row = mod.engine(res, device=DEVICE, **kw)
     engine_s = time.perf_counter() - t0
+    if kw.get("check_points") and name in NEW_FIGURES:
+        c = row["check"]
+        check(c["points_checked"] == kw["check_points"] and c["max_rel_diff"] == 0.0,
+              f"{name} {backend}: per-point check {c}")
     rows = rows + [row]
     sc = row["shard_check"]
     check(sc["primary"] == "graph" and sc["alt"] == "eager" and sc["bit_exact"],
@@ -1901,14 +1939,14 @@ def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s)
     else:
         worst = 0.0
         for k, v in want["derived"].items():
-            if k.endswith("_engine"):
-                check(got[k] == v, f"{name} device: engine row {got[k]} != {v}")
+            if k.endswith("_engine") or "=" not in v:
+                check(got[k] == v, f"{name} device: row {k} {got[k]} != {v}")
                 continue
             for a, b in zip(_ratios(got[k]), _ratios(v)):
                 worst = max(worst, abs(np.log(a / b)))
         check(worst <= FIG_LOG_TOL, f"{name} device: a ratio differs from JAX's by "
               f"|log| {worst:.4f} > {FIG_LOG_TOL}: {got} vs {want['derived']}")
-    nodes = info.groups[0]["N"]
+    nodes = "/".join(str(g["N"]) for g in info.groups)
     if backend == "numpy":
         # the executor read the traces from its memo: host generation, timed
         # cold once when the memo was filled, is not in its wall
@@ -1931,32 +1969,208 @@ def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s)
         print(f"  {r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"")
 
 
-def figures_path(torch, grid_out, gen_s):
-    """Phase 12: the three figures with both trace backends through their
-    drivers, the counts read around the six figure runs alone; then each
-    run's checks and engine row. Returns the figure runs' launches of
-    fused_cache_step."""
+def figures_path(torch, grid_out, gen_s, names=FIGURES, backends=None):
+    """Phases 12 and 13: the figures ``names`` through their drivers, each
+    with the trace backends ``backends[name]`` (default: numpy and device),
+    the counts read around these figure runs alone; then each run's checks
+    and engine row. Returns the figure runs' launches of fused_cache_step."""
     import importlib
     golden = json.loads((ROOT / "src/repro_torch/testdata/figures_golden.json").read_text())
     runs = []
     reset_counts()
-    for name in FIGURES:
+    for name in names:
         mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
-        for backend in ("numpy", "device"):
+        for backend in (backends or {}).get(name, ("numpy", "device")):
             t0 = time.perf_counter()
             rows, res = mod.run_figure(quick=True, trace_backend=backend, device=DEVICE)
             runs.append((name, backend, mod, rows, res, time.perf_counter() - t0))
     launched = counts()
     launches = launched.pop("fused_cache_step")
     planned = sum(g["T_pad"] for *_, res, _ in runs for g in res.info.groups)
-    check(launches == planned, f"the six figure runs launched fused_cache_step {launches} "
-          f"times, their groups' t_pad add to {planned}")
+    check(launches == planned, f"the {len(runs)} figure runs launched fused_cache_step "
+          f"{launches} times, their groups' t_pad add to {planned}")
     check(not any(launched.values()), f"unexpected launches on the figure path: {launched}")
-    print(f"figure path: fused_cache_step launched {launches} times in the six figure "
-          f"runs (t_pad a group; the checks below are not counted)", flush=True)
+    print(f"figure path ({', '.join(names)}): fused_cache_step launched {launches} times "
+          f"in the {len(runs)} figure runs (t_pad a group; the checks below are not "
+          f"counted)", flush=True)
     for run in runs:
         _figure_checks(*run, golden, grid_out, gen_s)
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 14-15: fig12's policy matrix and the throughput benchmark
+# --------------------------------------------------------------------------
+
+COUNTERS = ("prefetches_issued", "demand_hit_fraction", "corepf_hit_fraction",
+            "cache_occupancy")
+
+
+def _policy_combos(specs):
+    from repro_torch.benchmarks.run import policy_combos
+
+    def error(msg):
+        raise ValueError(msg)
+    return policy_combos(specs, error)
+
+
+def _matrix_run(f12, combos, T):
+    """fig12's policy experiment over ``combos`` at ``T``, numpy traces,
+    on the card: (rows, ExperimentResult)."""
+    import dataclasses
+    exp = f12.policy_experiment(combos, quick=True, trace_backend="numpy")
+    res = dataclasses.replace(exp, T=T).run(assert_compiles=True, device=DEVICE)
+    from repro_torch.benchmarks.common import workloads
+    rows = f12.policy_rows(res.get, workloads(True), combos, res.info.us_per_call())
+    rows.append({"name": "fig12_policies_engine",
+                 "derived": f"groups={res.info.planned_groups}"})
+    return rows, res
+
+
+def _same_points(what, res, want_points, rtol):
+    """Every point's metrics against JAX's golden: counters exact, floats
+    (ipc, fam_latency, issue_rate) within ``rtol``."""
+    for pt, gp in zip(res.points, want_points):
+        check([list(c) for c in pt.coords] == gp["coords"], f"{what}: point order")
+        m = res.metrics_for(pt)
+        for k, v in m.items():
+            want = np.asarray(gp[k], np.float32)
+            ok = np.array_equal(v, want) if k in COUNTERS else \
+                np.allclose(v, want, rtol=rtol, atol=0)
+            check(ok, f"{what} {pt.coords}: {k} {v} vs JAX's {want}")
+
+
+def _random_run(spec):
+    """The golden's random-replacement combo on the card: the quick
+    workloads on ``spec["nodes"]`` nodes, numpy traces, prefetching on, the
+    cache cut to ``spec["dram_cache_bytes"]``, on ``spec["kernel_backend"]``."""
+    import dataclasses
+    from repro_torch import experiments as tx
+    from repro_torch.configs.base import FamConfig
+    from repro_torch.policies import PolicySet, SimFlags
+    base = dataclasses.replace(FamConfig(), kernel_backend=spec["kernel_backend"],
+                               dram_cache_bytes=spec["dram_cache_bytes"])
+    exp = tx.Experiment(name="random_replacement", T=spec["T"], base=base, flags=SimFlags(),
+                        nodes=spec["nodes"], trace_backend="numpy",
+                        axes=(tx.workload_axis(QUICK_WORKLOADS),
+                              tx.policy_axis({"random": PolicySet(replacement="random")})))
+    return exp.run(assert_compiles=True, device=DEVICE)
+
+
+def _events_line(info):
+    return (f"executor wall {info.wall_s:.3f} s (captures {info.compile_s:.3f} s, replays "
+            f"{info.run_s:.3f} s) = {info.events / info.wall_s:.1f} events/s/device")
+
+
+def policy_matrix(torch):
+    """Phase 14: fig12's policy matrix at its golden T on numpy traces
+    against JAX's golden (rows exact, every point's metrics), its spp+wfq
+    rows against a plain fig12 run's w2 rows at that T, the golden's
+    random-replacement combo on the ``torch`` cache step (every point's
+    metrics), and ``random`` refused by the CUDA cache step. The counts are
+    read around the matrix and random runs: t_pad launches a group of the
+    matrix (the ``cuda`` cache step), none in the random combo's. Returns
+    the matrix's launches."""
+    import dataclasses
+    from repro_torch.benchmarks import fig12_wfq as f12
+    from repro_torch.benchmarks.common import workloads
+    from repro_torch.policies import PolicySet
+    golden = json.loads((ROOT / "src/repro_torch/testdata/figures_golden.json").read_text())
+    m, spec = golden["matrix"], golden["random"]
+    combos = _policy_combos(m["specs"])
+    check({k: v.describe() for k, v in combos.items()} == m["combos"],
+          f"combos {list(combos)} differ from the golden's")
+    reset_counts()
+    rres = _random_run(spec)
+    check(counts()["fused_cache_step"] == 0, "the random combo launched the CUDA cache step")
+    rows, res = _matrix_run(f12, combos, m["T"])
+    launched = counts()
+    launches = launched.pop("fused_cache_step")
+    check(not any(launched.values()), f"unexpected launches on the matrix path: {launched}")
+    info = res.info
+    planned = sum(g["T_pad"] for g in info.groups)
+    check(launches == planned, f"the matrix launched fused_cache_step {launches} times, "
+          f"expected {planned}")
+    check(info.compiles == info.planned_groups, f"matrix: {info.compiles} captures "
+          f"for {info.planned_groups} groups")
+    got = {r["name"]: r["derived"] for r in rows}
+    check(got == m["derived"], f"matrix derived differ from JAX's: "
+          f"{[(k, got.get(k), v) for k, v in m['derived'].items() if got.get(k) != v]}")
+    _same_points("matrix", res, m["points"], golden["rtol"])
+    print(f"policy matrix ({'+'.join(m['specs'])}, T {m['T']}): {len(got)} rows equal to "
+          f"JAX's, every point's metrics within rtol {golden['rtol']} (counters exact); "
+          f"{info.planned_groups} groups, {info.systems} systems; {_events_line(info)}; "
+          f"fused_cache_step launches {launches}", flush=True)
+    for r in rows:
+        print(f"  {r['name']},\"{r['derived']}\"")
+    info = rres.info
+    check(info.planned_groups == spec["groups"] and info.compiles == spec["groups"],
+          f"random: {info.compiles} captures for {info.planned_groups} groups")
+    _same_points("random", rres, spec["points"], golden["rtol"])
+    occupancy = min(float(rres.metrics_for(p)["cache_occupancy"].min()) for p in rres.points)
+    print(f"random replacement ({spec['kernel_backend']} cache step, {info.systems} systems x "
+          f"{spec['nodes']} nodes x {spec['T']} events, a {spec['dram_cache_bytes']} B cache, "
+          f"occupancy {occupancy:.3f} at least): every point's metrics equal to JAX's within "
+          f"rtol {golden['rtol']} (counters exact); {_events_line(info)}", flush=True)
+    # the matrix's spp+wfq rows and points are the plain run's w2 ones
+    plain = dataclasses.replace(f12.experiment(quick=True, trace_backend="numpy"), T=m["T"])
+    pres = plain.run(assert_compiles=True, device=DEVICE)
+    prows = {r["name"]: r["derived"]
+             for r in f12.figure_rows(pres.get, workloads(True), 0.0)}
+    same = 0
+    for r in rows:
+        if r["name"].endswith("_spp+wfq"):
+            w2 = r["name"].replace("_spp+wfq", "_w2")
+            check(prows[w2] == r["derived"], f"{r['name']} {r['derived']} != {w2} {prows[w2]}")
+            same += 1
+    for n in f12.NODE_COUNTS:
+        for w in workloads(True):
+            a = res.get(nodes=n, workload=w, policy="spp+wfq")
+            b = pres.get(nodes=n, workload=w, variant="w2")
+            check(all(np.array_equal(a[k], b[k]) for k in a),
+                  f"spp+wfq and w2 differ at nodes {n}, {w}")
+    check(same == len(f12.NODE_COUNTS), f"{same} spp+wfq rows")
+    print(f"policy matrix: spp+wfq rows equal the plain fig12 run's w2 rows at T {m['T']} "
+          f"({same} rows, every point's metrics bit for bit)", flush=True)
+    # random has no mode in the CUDA cache step: refused before any launch
+    before = counts()["fused_cache_step"]
+    try:
+        _matrix_run(f12, {"random": PolicySet(replacement="random")}, 100)
+    except ValueError as e:
+        check("'random'" in str(e), f"cuda + random raised another error: {e}")
+        print(f"cuda cache step with random replacement refused: {e}", flush=True)
+    else:
+        check(False, "kernel_backend='cuda' ran random replacement")
+    check(counts()["fused_cache_step"] == before, "cuda + random launched the kernel")
+    return launches
+
+
+def bench(torch):
+    """Phase 15: ``bench --quick --repeats BENCH_REPEATS`` on both cache-step
+    backends (digests equal, asserted by the benchmark), then the full grid
+    (fig08 over all 19 workloads) on ``cuda`` once; the counts read around
+    each: t_pad launches a ``cuda`` execution, none on ``torch``."""
+    from repro_torch.benchmarks import bench_famsim
+    out = {}
+    for quick, argv in ((True, ["--quick", "--repeats", str(BENCH_REPEATS)]),
+                        (False, ["--kernel-backend", "cuda", "--repeats", "1"])):
+        reset_counts()
+        rows = bench_famsim.main(argv + ["--device", DEVICE])
+        launched = counts()
+        t_pad = bench_famsim._experiment("cuda", quick).plan().groups
+        executions = BENCH_REPEATS if quick else 1
+        want = executions * sum(g.t_pad for g in t_pad)
+        check(launched.pop("fused_cache_step") == want,
+              f"bench quick={quick}: launches differ from {want}")
+        check(not any(launched.values()), f"unexpected launches in the bench: {launched}")
+        for r in rows:
+            print(f"bench {'quick' if quick else 'full'} {r['backend']}: "
+                  f"{r['events_per_sec_per_device']} events/s/device ({r['events']} events, "
+                  f"{r['points']} points, best run_s {r['run_s_best']} of {r['run_s_all']}, "
+                  f"captures {r['compile_s']} s, last execution's wall {r['wall_s_last']} s), "
+                  f"digest {r['digest']}", flush=True)
+        out["quick" if quick else "full"] = rows
+    return out
 
 
 def main(argv=None):
@@ -2002,6 +2216,10 @@ def main(argv=None):
     phases.run("graph_profile", profile_window, torch, args.profile, replay_ms)
     phases.run("device_traces", device_traces, torch)
     phases.run("figures", figures_path, torch, grid_out, gen_s)
+    phases.run("figures_10_12_15", figures_path, torch, grid_out, gen_s, NEW_FIGURES,
+               NEW_FIG_BACKENDS)
+    phases.run("policy_matrix", policy_matrix, torch)
+    phases.run("bench", bench, torch)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(f"total: {sum(phases.seconds.values()):.3f} s in phases, "
           f"{time.perf_counter() - t_start:.3f} s wall")

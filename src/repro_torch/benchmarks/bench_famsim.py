@@ -1,0 +1,175 @@
+"""Steady-state throughput of the simulator, per cache-step backend.
+
+Counterpart of the reference's ``benchmarks/bench_famsim.py``: simulated
+events/s/device at fig08 scale (the block-size sweep) for each
+``FamConfig.kernel_backend`` (``cuda``, the hand-written cache-step kernel,
+and ``torch``, its plain version), through the same planner and executor
+the figures use, so the number tracked is the one the figures pay.
+
+Every time comes from the executor's own accounting: ``RunInfo.run_s``
+(the replays, graph captures excluded) and ``compile_s`` (the captures;
+each execution captures its graphs anew). ``repeats`` executions per
+backend, the best ``run_s`` reported. ``derived`` carries only the metric
+digest (SHA-256 over every metric array of every point) and the event
+count; ``main`` asserts that the backends' digests are equal: on the card
+the graphed ``cuda`` and ``torch`` runs are bit-identical, on the CPU both
+run the plain version.
+
+Rows (``bench_famsim.json``) and the throughput trajectory
+(``bench_famsim_trajectory.json``, one entry per backend per invocation,
+appended) are written only under ``--out``. The reference's roofline
+record (``--no-roofline``) waits for the port of ``roofline/``, so the
+option is not offered.
+
+Usage::
+
+    python -m repro_torch.benchmarks.run bench                  # both backends
+    python -m repro_torch.benchmarks.run bench --quick          # CI scale
+    python -m repro_torch.benchmarks.run bench --kernel-backend torch --repeats 5
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+
+from repro_torch.benchmarks import fig08_blocksize
+from repro_torch.benchmarks.common import BASELINE, DRAM, save_rows, workloads
+from repro_torch.configs.base import KERNEL_BACKENDS
+from repro_torch.experiments import config_axis, execute, flag_axis, workload_axis
+
+NAME = "bench_famsim"
+TRAJECTORY = "bench_famsim_trajectory.json"
+SCHEMA = "bench_famsim_torch/v1"
+
+#: The quick grid: a subsample of fig08 (same axes, fewer values) at a
+#: short T; the full grid is fig08's ``quick=False`` experiment.
+QUICK_T = 400
+QUICK_BLOCKS = [256, 1024]
+QUICK_WORKLOADS = 2
+
+
+def _experiment(backend: str, quick: bool):
+    """fig08's experiment (device traces), subsampled to the quick grid
+    when ``quick`` (the same grid on every backend: the digest contract)."""
+    exp = fig08_blocksize.experiment(quick=quick, kernel_backend=backend)
+    if not quick:
+        return exp
+    return dataclasses.replace(
+        exp, T=QUICK_T,
+        axes=(config_axis("block", QUICK_BLOCKS, param="block_bytes"),
+              workload_axis(workloads(True)[:QUICK_WORKLOADS]),
+              flag_axis("variant", {"base": BASELINE, "dram": DRAM})))
+
+
+def _digest(result) -> str:
+    """Order-stable digest over every point's every metric array."""
+    h = hashlib.sha256()
+    for m in result.metrics:
+        for k in sorted(m):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(m[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def measure(backend: str, quick: bool, repeats: int, device="cuda") -> dict:
+    """Execute the experiment ``repeats`` times on ``backend``; best-of
+    ``run_s`` and the summed capture seconds."""
+    plan = _experiment(backend, quick).plan()
+    runs, result, compile_s = [], None, 0.0
+    for _ in range(max(repeats, 1)):
+        result = execute(plan, assert_compiles=True, device=device)
+        runs.append(result.info.run_s)
+        compile_s += result.info.compile_s
+    info = result.info
+    best = min(runs)
+    return {
+        "backend": backend,
+        "digest": _digest(result),
+        "events": info.events,
+        "points": len(result.points),
+        "devices": info.devices,
+        "planned_groups": info.planned_groups,
+        "run_s_best": round(best, 4),
+        "run_s_all": [round(r, 4) for r in runs],
+        "compile_s": round(compile_s, 3),
+        "wall_s_last": round(info.wall_s, 4),
+        "us_per_event": info.events and best / info.events * 1e6,
+        "events_per_sec_per_device": round(
+            info.events / max(best, 1e-12) / max(info.devices, 1), 1),
+        "engine": info.as_dict(),
+    }
+
+
+def _append_trajectory(path: Path, entries: list) -> None:
+    doc = {"schema": SCHEMA, "unit": "events_per_sec_per_device", "runs": []}
+    if path.exists():
+        old = json.loads(path.read_text())
+        if old.get("schema") == SCHEMA:
+            doc = old
+    doc["runs"].extend(entries)
+    path.write_text(json.dumps(doc, indent=2) + "\n")
+
+
+def main(argv=None) -> list:
+    """Measure, assert the digests equal, print the CSV; returns the rows."""
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.benchmarks.run bench",
+        description="Steady-state simulator throughput (events/s/device) per "
+                    "cache-step backend, at fig08 scale")
+    ap.add_argument("--kernel-backend", default="both",
+                    choices=("both",) + KERNEL_BACKENDS,
+                    help="which backend(s) to measure (default: both, "
+                         "asserting that their metric digests are equal)")
+    ap.add_argument("--quick", action="store_true",
+                    help=f"fig08's grid subsampled to {len(QUICK_BLOCKS)} block "
+                         f"sizes x {QUICK_WORKLOADS} workloads, T={QUICK_T}")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="executions per backend; the best run_s is reported")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to simulate on (default: cuda)")
+    ap.add_argument("--out", default=None, metavar="DIR",
+                    help=f"write the rows to DIR/{NAME}.json and append the "
+                         f"trajectory entries to DIR/{TRAJECTORY}")
+    args = ap.parse_args(argv)
+
+    backends = KERNEL_BACKENDS if args.kernel_backend == "both" \
+        else (args.kernel_backend,)
+    measured = [measure(b, args.quick, args.repeats, args.device) for b in backends]
+    digests = {m["backend"]: m["digest"] for m in measured}
+    assert len(set(digests.values())) == 1, (
+        "kernel backends disagree on the metrics: the CUDA cache step must "
+        "be bit-identical to its plain version", digests)
+
+    rows = [{"name": f"{NAME}_{m['backend']}", "us_per_call": m["us_per_event"],
+             # deterministic: the digest and the true event count only
+             "derived": f"digest={m['digest']};events={m['events']}",
+             **{k: v for k, v in m.items() if k != "us_per_event"}}
+            for m in measured]
+    if args.out is not None:
+        save_rows(NAME, rows, args.out)
+        _append_trajectory(Path(args.out) / TRAJECTORY, [
+            {k: v for k, v in r.items() if k not in ("engine", "us_per_call")}
+            | {"quick": bool(args.quick)} for r in rows])
+
+    print("name,us_per_call,derived")
+    for r in rows:
+        print(f"{r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"", flush=True)
+    for m in measured:
+        print(f"# {m['backend']}: {m['events_per_sec_per_device']} events/s/device "
+              f"(best run_s {m['run_s_best']} s of {m['run_s_all']}, captures "
+              f"{m['compile_s']} s)", flush=True)
+    if len(measured) > 1:
+        base, other = measured[0], measured[1]
+        print(f"# {other['backend']} vs {base['backend']}: "
+              f"{base['run_s_best'] / max(other['run_s_best'], 1e-12):.2f}x, "
+              "digests match", flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

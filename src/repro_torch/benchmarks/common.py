@@ -199,6 +199,22 @@ def info_row(name: str, info: RunInfo, **extra) -> dict:
             "engine": info.as_dict(), **extra}
 
 
+def checked_info_row(name: str, result: ExperimentResult, device="cuda",
+                     check_points: int = 0) -> dict:
+    """:func:`info_row` (the reference's engine row of fig10 / fig12 /
+    fig15, ``derived`` the planned groups) with two JSON-only checks: the
+    graph-vs-eager check (:func:`eager_check`) and, for the first
+    ``check_points`` points (none by default, as the reference), the
+    per-point check (:func:`engine_check`)."""
+    extra = {"shard_check": eager_check(result, device)}
+    if check_points:
+        pts = result.points[:check_points]
+        extra["check"] = engine_check(pts, [result.metrics_for(p) for p in pts],
+                                      trace_backend=result.info.trace_backend,
+                                      device=device)
+    return info_row(name, result.info, **extra)
+
+
 def trace_gen_compare(plan, device="cuda") -> dict:
     """Device-vs-numpy trace generation wall-clock at a figure's scale:
     ``numpy_host_gen_s`` generates and stages every group's padded

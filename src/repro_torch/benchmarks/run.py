@@ -1,13 +1,26 @@
 """Run the port's paper-figure drivers and print ``name,us_per_call,derived``.
 
-Counterpart of the reference's ``benchmarks/run.py`` for the figures the
-port has (fig08, fig14, fig16)::
+Counterpart of the reference's ``benchmarks/run.py`` (fig08, fig10, fig12,
+fig14, fig15, fig16 and the ``bench`` subcommand)::
 
     python -m repro_torch.benchmarks.run                       # all, quick, on the card
+    python -m repro_torch.benchmarks.run fig10 fig12 fig15
     python -m repro_torch.benchmarks.run --only fig14 --device cpu
     python -m repro_torch.benchmarks.run fig08 --trace-backend numpy
     python -m repro_torch.benchmarks.run --full --out /tmp/rows   # JSON rows there
     python -m repro_torch.benchmarks.run --plan                # compile groups only
+
+``--policies`` sweeps the policy zoo as a policy matrix on the figures
+that support it (fig12); ``random`` replacement needs
+``--kernel-backend torch``::
+
+    python -m repro_torch.benchmarks.run --policies scheduler=fifo,wfq,strict \\
+        --policies prefetch=spp,nextline,bestoffset fig12
+
+``bench`` hands the remaining arguments to the throughput benchmark
+(:mod:`repro_torch.benchmarks.bench_famsim`)::
+
+    python -m repro_torch.benchmarks.run bench --quick
 
 ``--device`` defaults to ``cuda`` (the run fails without a card rather
 than fall back to the CPU). JSON rows are written only under ``--out``.
@@ -15,19 +28,30 @@ than fall back to the CPU). JSON rows are written only under ``--out``.
 from __future__ import annotations
 
 import argparse
+import inspect
+import itertools
 import sys
 import time
 
-FIGURE_NAMES = ("fig08", "fig14", "fig16")
+FIGURE_NAMES = ("fig08", "fig10", "fig12", "fig14", "fig15", "fig16")
 
 
 def _figures():
-    from repro_torch.benchmarks import fig08_blocksize, fig14_mixes, fig16_cachesize
-    return {"fig08": fig08_blocksize, "fig14": fig14_mixes,
-            "fig16": fig16_cachesize}
+    from repro_torch.benchmarks import (fig08_blocksize, fig10_bw_adaptation,
+                                        fig12_wfq, fig14_mixes, fig15_allocation,
+                                        fig16_cachesize)
+    return {"fig08": fig08_blocksize, "fig10": fig10_bw_adaptation,
+            "fig12": fig12_wfq, "fig14": fig14_mixes,
+            "fig15": fig15_allocation, "fig16": fig16_cachesize}
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "bench":
+        # the throughput benchmark owns its whole argument tail
+        from repro_torch.benchmarks import bench_famsim
+        bench_famsim.main(argv[1:])
+        return
     ap = argparse.ArgumentParser(
         description="Run the port's paper-figure drivers through "
                     "repro_torch.experiments")
@@ -47,6 +71,14 @@ def main(argv=None) -> None:
                     default="cuda",
                     help="cache step: the hand-written kernel (its plain "
                          "version on CPU tensors) or the plain version")
+    ap.add_argument("--policies", action="append", default=None,
+                    metavar="KIND=NAME[,NAME...]",
+                    help="policy-matrix mode (repeatable): the cross-product of "
+                         "the named policies per kind (prefetch / scheduler / "
+                         "replacement / adaptation) as PolicySet combos, on "
+                         "figures that support it (fig12); unlisted kinds keep "
+                         "their defaults, and the all-default combo is the "
+                         "baseline")
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write each figure's JSON rows to DIR/<figure>.json")
     ap.add_argument("--plan", action="store_true",
@@ -63,12 +95,22 @@ def main(argv=None) -> None:
             ap.error(f"unknown figures: {sorted(unknown)} (choose from {list(figures)})")
         figures = {k: v for k, v in figures.items() if k in keep}
 
+    combos = None
+    if args.policies:
+        combos = policy_combos(args.policies, ap.error)
+        unsupported = [k for k, mod in figures.items()
+                       if "policies" not in inspect.signature(mod.run).parameters]
+        if unsupported:
+            ap.error(f"--policies is not supported by {unsupported} "
+                     "(supported: fig12); select supported figures explicitly")
+
     if args.plan:
         from repro_torch.benchmarks.common import plan_lines
         for mod in figures.values():
-            exp = mod.experiment(quick=not args.full,
-                                 trace_backend=args.trace_backend,
-                                 kernel_backend=args.kernel_backend)
+            kw = dict(quick=not args.full, trace_backend=args.trace_backend,
+                      kernel_backend=args.kernel_backend)
+            exp = mod.experiment(**kw) if combos is None else \
+                mod.policy_experiment(combos, **kw)
             for line in plan_lines(exp.plan(), exp.axes):
                 print(line)
         return
@@ -76,13 +118,37 @@ def main(argv=None) -> None:
     print("name,us_per_call,derived")
     for key, mod in figures.items():
         t0 = time.time()
+        kw = {} if combos is None else {"policies": combos}
         rows = mod.run(quick=not args.full, trace_backend=args.trace_backend,
                        kernel_backend=args.kernel_backend, device=args.device,
-                       out=args.out)
+                       out=args.out, **kw)
         for r in rows:
             print(f"{r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"",
                   flush=True)
         print(f"# {key} wall={time.time() - t0:.1f}s", file=sys.stderr)
+
+
+def policy_combos(specs, error):
+    """Parse repeated ``KIND=NAME[,NAME...]`` arguments into the
+    cross-product of labelled PolicySets. A label joins the swept kinds'
+    policy names in kind order (``spp+fifo``), so the all-default combo,
+    the baseline, is labelled by its default names."""
+    from repro_torch.policies import POLICY_KINDS, PolicySet, available
+
+    swept = {}
+    for spec in specs:
+        kind, eq, names = spec.partition("=")
+        if not eq or not names:
+            error(f"--policies expects KIND=NAME[,NAME...], got {spec!r}")
+        if kind not in POLICY_KINDS:
+            error(f"unknown policy kind {kind!r} (kinds: {POLICY_KINDS})")
+        for n in names.split(","):
+            if n not in available(kind):
+                error(f"unknown {kind} policy {n!r} (available: {available(kind)})")
+        swept[kind] = names.split(",")
+    kinds = [k for k in POLICY_KINDS if k in swept]
+    return {"+".join(values): PolicySet(**dict(zip(kinds, values)))
+            for values in itertools.product(*(swept[k] for k in kinds))}
 
 
 if __name__ == "__main__":

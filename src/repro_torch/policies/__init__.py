@@ -1,14 +1,17 @@
 """Pluggable policy layer for the FAM simulator (counterpart of
 ``repro.policies``). Importing this package registers the ported zoo:
 
-===========  =======================================
+===========  =============================================
 kind         policies
-===========  =======================================
-prefetch     ``spp`` (default)
+===========  =============================================
+prefetch     ``spp`` (default), ``nextline``, ``bestoffset``
 scheduler    ``fifo`` (default), ``wfq``, ``strict``
-replacement  ``lru`` (default), ``srrip``
+replacement  ``lru`` (default), ``random``, ``srrip``
 adaptation   ``token_bucket`` (default), ``static``
-===========  =======================================
+===========  =============================================
+
+``random`` replacement runs on ``kernel_backend="torch"`` only: the CUDA
+cache step bakes the policy in as a mode (lru, srrip) and raises for it.
 """
 from repro_torch.policies.base import (  # noqa: F401
     DEFAULT_POLICY_SET,

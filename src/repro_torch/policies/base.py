@@ -128,6 +128,9 @@ class PolicySet:
             (k, tuple(sorted(v.items()))) for k, v in merged.items() if v))
         return replace(self, overrides=canon)
 
+    def describe(self) -> str:
+        return "+".join(getattr(self, k) for k in POLICY_KINDS)
+
     @classmethod
     def from_flags(cls, flags: Optional[SimFlags]) -> "PolicySet":
         """``wfq=True`` selects the ``wfq`` scheduler (``wfq_weight`` becomes

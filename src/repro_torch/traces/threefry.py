@@ -9,7 +9,8 @@ threefry2x32 keys exactly as ``repro.traces.device`` does through
   (``jax/_src/prng.py``, ``_threefry2x32_lowering``);
 * counters — ``iota_2x32_shape``: the row-major flat index of each element
   as (hi, lo) 32-bit halves (hi is 0 below 2**32 elements);
-* :func:`fold_in` — ``threefry2x32(key, (0, data))``;
+* :func:`fold_in` — ``threefry2x32(key, (0, data))``, ``data`` an int or
+  one integer per key;
 * :func:`split` — the fold-like split: key i is ``threefry2x32(key, (0, i))``;
 * :func:`random_bits` — ``bits1 ^ bits2`` of the hash over the counters;
 * :func:`randint` — two split keys give higher and lower bits, folded
@@ -82,9 +83,14 @@ def _hash(k: torch.Tensor, shape) -> tuple:
     return threefry2x32(k[..., 0][pad], k[..., 1][pad], torch.zeros_like(lo), lo)
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(k, data)`` for a Python int ``data``."""
-    d = torch.full_like(k[..., 0], int(data) & M32)
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(k, data)``: ``data`` a Python int, or an
+    integer tensor that broadcasts against ``k[..., 0]`` (one datum per
+    key, where JAX vmaps ``fold_in``), taken as uint32."""
+    if isinstance(data, torch.Tensor):
+        d = (data.to(torch.int64) & M32).expand_as(k[..., 0])
+    else:
+        d = torch.full_like(k[..., 0], int(data) & M32)
     a, b = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([a, b], -1)
 
@@ -112,16 +118,23 @@ def _as_int(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.int64, device=like.device)
 
 
+def _is_int32(v) -> bool:
+    """An int32 tensor: within int32 by its type, so its bounds need no
+    check (a check would sync the host, which a CUDA graph forbids)."""
+    return isinstance(v, torch.Tensor) and v.dtype == torch.int32
+
+
 def randint(k: torch.Tensor, shape: Shape, minval, maxval) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32). ``minval``
     and ``maxval`` are ints or integer tensors that broadcast against
     ``k.shape[:-1] + shape`` (a per-lane bound is shaped ``(..., 1)``),
-    within int32."""
+    within int32 (checked unless both are int32 tensors)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     k1, k2 = split(k).unbind(-2)
     higher, lower = random_bits(k1, shape), random_bits(k2, shape)
     lo, hi = _as_int(minval, k), _as_int(maxval, k)
-    if bool((hi > 2 ** 31 - 1).any()) or bool((lo < -2 ** 31).any()):
+    if not (_is_int32(minval) and _is_int32(maxval)) and (
+            bool((hi > 2 ** 31 - 1).any()) or bool((lo < -2 ** 31).any())):
         raise ValueError("randint bounds must lie within int32")
     span = (hi - lo) & M32
     span = torch.where(hi <= lo, torch.ones_like(span), span)

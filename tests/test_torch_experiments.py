@@ -14,6 +14,7 @@
   reference's and no trace is generated on the host.
 """
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -90,8 +91,13 @@ def _assert_plans_equal(jplan, tplan):
         (jplan.events(), jplan.padded_events(), jplan.padded_systems())
 
 
+#: compile groups of each figure's grid: one, or one per node count
+FIGURE_GROUPS = {"fig08_blocksize": 1, "fig14_mixes": 1, "fig16_cachesize": 1,
+                 "fig10_bw_adaptation": 3, "fig12_wfq": 2, "fig15_allocation": 1}
+
+
 @pytest.mark.parametrize("quick", [True, False])
-@pytest.mark.parametrize("fig", ["fig08_blocksize", "fig14_mixes", "fig16_cachesize"])
+@pytest.mark.parametrize("fig", list(FIGURE_GROUPS))
 def test_figure_plans_equal_reference(fig, quick):
     import importlib
     ref = importlib.import_module(f"benchmarks.{fig}")
@@ -99,9 +105,77 @@ def test_figure_plans_equal_reference(fig, quick):
     for backend in ("device", "numpy"):
         jplan = ref.experiment(quick=quick, trace_backend=backend).plan()
         tplan = port.experiment(quick=quick, trace_backend=backend).plan()
-        assert tplan.num_groups == 1 and tplan.trace_backend == backend
+        assert tplan.num_groups == FIGURE_GROUPS[fig] and tplan.trace_backend == backend
         assert [p.coords for p in tplan.points] == [p.coords for p in jplan.points]
         _assert_plans_equal(jplan, tplan)
+
+
+def _matrix_pair(specs):
+    """(reference, port) fig12 policy experiments over the combos ``specs``
+    name, through each side's ``policy_combos``."""
+    from benchmarks import fig12_wfq as ref12
+    from benchmarks.run import policy_combos as jcombos
+    from repro_torch.benchmarks import fig12_wfq as port12
+    from repro_torch.benchmarks.run import policy_combos as tcombos
+
+    def error(msg):
+        raise ValueError(msg)
+    return (ref12.policy_experiment(jcombos(specs, error), quick=True),
+            port12.policy_experiment(tcombos(specs, error), quick=True))
+
+
+@pytest.mark.parametrize("specs,groups", [
+    (["scheduler=fifo,wfq,strict", "prefetch=spp,nextline,bestoffset"], 12),
+    (["replacement=lru,random,srrip", "adaptation=token_bucket,static"], 12),
+    (["scheduler=fifo,wfq"], 2),
+])
+def test_policy_matrix_plans_equal_reference(specs, groups):
+    """fig12's policy matrix plans into the reference's compile groups: one
+    per node count and set of compile tags (fifo and wfq share one)."""
+    jexp, texp = _matrix_pair(specs)
+    jplan, tplan = jexp.plan(), texp.plan()
+    assert [p.coords for p in tplan.points] == [p.coords for p in jplan.points]
+    assert [p.policy_set().describe() for p in tplan.points] == \
+        [p.policy_set().describe() for p in jplan.points]
+    _assert_plans_equal(jplan, tplan)
+    assert tplan.num_groups == groups
+
+
+def test_bench_quick_grid_digests_and_rows(tmp_path, capsys):
+    """``bench --quick`` on the CPU: the quick grid (2 block sizes x 2
+    workloads x {base, dram} at T 400, one group), both backends' digests
+    equal (both run the plain cache step on CPU tensors), best-of run_s
+    over the repeats; rows and the trajectory only under ``--out``, the
+    trajectory appended on a second call."""
+    from repro_torch.benchmarks import bench_famsim as bench
+    from repro_torch.benchmarks import run as run_cli
+    plan = bench._experiment("cuda", quick=True).plan()
+    assert plan.num_groups == 1 and plan.num_points == 8
+    assert {p.T for p in plan.points} == {bench.QUICK_T}
+    assert [p.coords for p in plan.points][:2] == [
+        (("block", "256"), ("workload", "603.bwaves_s"), ("variant", "base")),
+        (("block", "256"), ("workload", "603.bwaves_s"), ("variant", "dram"))]
+    before = set(REPO.iterdir())
+    rows = bench.main(["--quick", "--repeats", "2", "--device", "cpu"])
+    assert set(REPO.iterdir()) == before and not list(tmp_path.iterdir())
+    assert [r["name"] for r in rows] == ["bench_famsim_cuda", "bench_famsim_torch"]
+    assert rows[0]["digest"] == rows[1]["digest"]
+    assert rows[0]["derived"] == rows[1]["derived"] == \
+        f"digest={rows[0]['digest']};events={8 * bench.QUICK_T}"
+    for r in rows:
+        assert len(r["run_s_all"]) == 2 and r["run_s_best"] == min(r["run_s_all"])
+        assert r["planned_groups"] == 1 and r["compile_s"] == 0.0   # no capture on the CPU
+    run_cli.main(["bench", "--quick", "--repeats", "1", "--device", "cpu",
+                  "--kernel-backend", "torch", "--out", str(tmp_path)])
+    run_cli.main(["bench", "--quick", "--repeats", "1", "--device", "cpu",
+                  "--kernel-backend", "torch", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert f"\"digest={rows[0]['digest']};events=3200\"" in out
+    saved = json.loads((tmp_path / "bench_famsim.json").read_text())
+    assert [r["name"] for r in saved] == ["bench_famsim_torch"]
+    traj = json.loads((tmp_path / bench.TRAJECTORY).read_text())
+    assert traj["schema"] == bench.SCHEMA and len(traj["runs"]) == 2
+    assert all(r["quick"] and r["digest"] == rows[0]["digest"] for r in traj["runs"])
 
 
 def test_buckets_equal_reference():
@@ -260,12 +334,23 @@ def test_execute_refuses_what_is_not_ported():
 
 def test_cli_plan_equals_reference(capsys):
     """``python -m repro_torch.benchmarks.run --plan`` prints the
-    reference's ``--plan`` lines for fig08/14/16, modulo the kernel tag."""
+    reference's ``--plan`` lines for every figure, and for fig12's policy
+    matrix under ``--policies``, modulo the kernel tag."""
     from benchmarks.run import main as jmain
     from repro_torch.benchmarks.run import main as tmain
-    jmain(["--plan", "fig08", "fig14", "fig16"])
+    jmain(["--plan"])
     want = capsys.readouterr().out.replace("'xla'", "'cuda'")
     tmain(["--plan"])
     assert capsys.readouterr().out == want
     tmain(["--plan", "--only", "fig14", "--full"])
     assert capsys.readouterr().out.startswith("fig14_mixes: 1 group(s), 42 points")
+    matrix = ["--plan", "--policies", "scheduler=fifo,wfq,strict",
+              "--policies", "prefetch=spp,nextline,bestoffset", "fig12"]
+    jmain(matrix)
+    want = capsys.readouterr().out.replace("'xla'", "'cuda'")
+    tmain(matrix)
+    assert capsys.readouterr().out == want
+    assert want.startswith("fig12_wfq_policies: 12 group(s), 108 points")
+    with pytest.raises(SystemExit):
+        tmain(["--plan", "--policies", "prefetch=spp,nextline", "fig15"])
+    assert "not supported by ['fig15']" in capsys.readouterr().err

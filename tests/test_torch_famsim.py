@@ -89,28 +89,49 @@ def test_build_sim_matches_reference(replacement):
                         err=f"{replacement} {f}")
 
 
-# policy combinations beyond lru/srrip x fifo/wfq/token_bucket:
-# (PolicySet fields, SimFlags fields); sample_interval 64 lets adaptation fire
+# policy combinations beyond lru/srrip x fifo/wfq/token_bucket: (PolicySet
+# fields, SimFlags fields, T, numeric overrides {kind: {param: value}});
+# sample_interval 64 lets adaptation fire
 POLICY_CASES = {
-    "strict": (dict(scheduler="strict"), {}),
-    "static": (dict(adaptation="static"), {}),
+    "strict": (dict(scheduler="strict"), {}, 300, {}),
+    "static": (dict(adaptation="static"), {}, 300, {}),
     "srrip_strict_bw_adapt_wfq": (dict(replacement="srrip", scheduler="strict"),
-                                  dict(bw_adapt=True, wfq=True)),
+                                  dict(bw_adapt=True, wfq=True), 300, {}),
+    "strict_t400": (dict(scheduler="strict"), {}, 400, {}),
+    "static_t400": (dict(adaptation="static"), {}, 400, {}),
+    "srrip_strict_bw_adapt_wfq_t400": (dict(replacement="srrip", scheduler="strict"),
+                                       dict(bw_adapt=True, wfq=True), 400, {}),
+    "strict_static_rate_quarter": (dict(scheduler="strict", adaptation="static"),
+                                   dict(bw_adapt=True), 400,
+                                   {"adaptation": {"rate": 0.25}}),
+    "srrip_static_wfq_backlog_cap": (dict(replacement="srrip", adaptation="static",
+                                          scheduler="wfq"), {}, 400,
+                                     {"scheduler": {"backlog_cap": 400.0}}),
 }
+
+
+def _with_overrides(ps, overrides):
+    for kind, values in overrides.items():
+        ps = ps.override(kind, **values)
+    return ps
 
 
 @pytest.mark.parametrize("case", sorted(POLICY_CASES))
 def test_policy_sets_match_reference(case):
     """build_sim against the JAX sweep for the strict scheduler, the static
-    adaptation policy, and srrip + strict under bw_adapt and wfq."""
-    fields, flag_fields = POLICY_CASES[case]
-    addrs, gaps = system_traces(WL, 300, 4)
+    adaptation policy (at its default rate and at a quarter), srrip + strict
+    under bw_adapt and wfq, and srrip + static under a tight WFQ backlog
+    cap."""
+    fields, flag_fields, T_case, overrides = POLICY_CASES[case]
+    addrs, gaps = system_traces(WL, T_case, 4)
     jcfg = JFamConfig(sample_interval=64)
-    jps, jflags = JPolicySet(**fields), jfam.SimFlags(**flag_fields)
+    jps = _with_overrides(JPolicySet(**fields), overrides)
+    jflags = jfam.SimFlags(**flag_fields)
     jp = j_stack_params([JFamParams.of(jcfg, jflags, jps)])
     jout = jfam.sweep(jcfg, jp, None, addrs[None], gaps[None], policies=jps)
     run = tfam.build_sim(FamConfig(sample_interval=64), tfam.SimFlags(**flag_fields),
-                         N, policies=PolicySet(**fields), device="cpu")
+                         N, policies=_with_overrides(PolicySet(**fields), overrides),
+                         device="cpu")
     tout = run(addrs, gaps)
     _assert_metrics({k: np.asarray(v)[0] for k, v in jout.items()},
                     {k: v.numpy() for k, v in tout.items()}, err=case)
