@@ -103,7 +103,9 @@ code != 0):
    configuration against ``src/repro_torch/testdata/famsim_golden.json``;
 10. a torch.profiler window of a graphed 200-event sweep of the grid:
    exactly 200 ``cache_step_kernel`` launches; over the replays, device
-   kernels per event and the device's busy share;
+   kernels per event and the device's busy share; then the same with
+   TELEMETRY_WINDOWS telemetry windows (phase 15 prints the two side by
+   side);
 11. device traces: the threefry generator (``repro_torch.traces.device``)
    for all 19 workloads at T = 12,000, seed 0, on the card and on the CPU:
    every draw (raw, u, uni, starts, bases, spans) and every address the
@@ -141,7 +143,27 @@ code != 0):
    64 KB) on the ``torch`` cache step, every point against JAX's the same
    way; ``random`` with ``kernel_backend="cuda"`` refused before any
    launch;
-15. the throughput benchmark (``bench_famsim``): the quick grid on both
+15. telemetry: fig12's quick grid at T 2,000 on numpy traces with 8
+   telemetry windows (``repro_torch.obs``; the accumulator in the carry of
+   the graphed step): rows, ``derived`` and the JSON-only
+   ``windowed_tail`` equal to JAX's
+   (``src/repro_torch/testdata/obs_tenants_golden.json``), every point's
+   windows equal to JAX's (counts exact, the float gauges within the
+   golden's rtol), every shared metric bit-identical to phase 14's run of
+   the same grid with telemetry off, one capture and t_pad launches a
+   group; the fig08
+   grid at warmup 0, its windows summing to the run totals; phase 10's
+   profiled windows with and without telemetry: device kernels and time
+   an event;
+16. the Pond fleets: ``python -m repro_torch.benchmarks.run pond`` (quick:
+   {16, 64, 256} tenants x {uniform, zipf} x {none, load_shed}, T 1,024,
+   1,386 single-node lanes in one group, 256 x 16 caches) on the stored
+   numpy traces (``pond_numpy_traces.npz``; every fleet summary and tenant
+   record equal to JAX's golden) and on device traces (percentiles within
+   POND_BUCKETS histogram bucket, slowdown geomeans within |log|
+   POND_LOG_SLOWDOWN); each one planned group, one capture, t_pad launches;
+   lanes, events/s/device, capture seconds and replay ms an event;
+17. the throughput benchmark (``bench_famsim``): the quick grid on both
    backends, BENCH_REPEATS executions each, digests equal; then the full
    grid (fig08 over all 19 workloads, 228 systems x 12,000 events) on
    ``cuda`` once; events/s/device, best replay seconds and captures.
@@ -245,6 +267,7 @@ NEW_FIG_BACKENDS = {"fig10_bw_adaptation": ("numpy",), "fig12_wfq": ("numpy",),
 # the throughput benchmark (phase 15): executions a backend on the quick grid
 BENCH_REPEATS = 3
 TRACE_T = 12_000               # phase 11's trace length
+TELEMETRY_WINDOWS = 8          # phase 15's golden windows, and phase 10's second window
 PROFILE_MARGIN_S = 0.1         # idle seconds at each end of a profiler window
 LEAD_IN, LEAD_IN_CYCLES = 16, 1_000_000   # spin kernels opening a window, ~0.5 ms each
 LEAD_IN_KERNEL = "spin_kernel"            # torch.cuda._sleep's kernel
@@ -476,10 +499,21 @@ def _profiled(torch):
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
     from torch.autograd import DeviceType
-    kept = sum(e.device_type == DeviceType.CUDA and LEAD_IN_KERNEL in e.name
-               for e in prof.events())
+    kept = sum(e.device_type() == DeviceType.CUDA and LEAD_IN_KERNEL in e.name()
+               for e in prof.profiler.kineto_results.events())
     check(kept > 0, f"the profiler kept none of the {LEAD_IN} lead-in kernels")
     lead_in_lost.append(LEAD_IN - kept)
+
+
+def _raw_device_events(prof):
+    """(name, start ns, end ns) of the card's records of a _profiled
+    window, its lead-in left out, read from the profiler's raw results:
+    unlike ``prof.events()`` this builds no Python event tree, which for a
+    window of ~150,000 records takes tens of seconds."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and LEAD_IN_KERNEL not in e.name()]
 
 
 def _device_events(prof):
@@ -1732,44 +1766,57 @@ def backends_and_golden(torch):
     print(f"golden configuration matches at rtol {golden['rtol']}")
 
 
-def profile_window(torch, table, replay_ms, steps=200):
+def profile_window(torch, table, replay_ms, steps=200, telemetry=0):
     """torch.profiler over a graphed sweep of ``steps`` events of the fig08
-    grid, after a short sweep of the same grid (which loads its kernels):
-    exactly ``steps`` cache_step_kernel launches; over the replays (from
-    the first to the last of those launches) the device kernels per event,
-    their device time per event, and that time's share of the profiled
-    span and of ``replay_ms``, the main path's unprofiled replay wall per
-    event (tracing each kernel slows the replays); with ``table`` the
-    profiler's op table."""
+    grid (with ``telemetry`` windows when non-zero), after a short sweep of
+    the same grid (which loads its kernels): exactly ``steps``
+    cache_step_kernel launches; over the replays (from the first to the
+    last of those launches) the device kernels per event, their device
+    time per event, and that time's share of the profiled span and of
+    ``replay_ms``, the main path's unprofiled replay wall per event
+    (tracing each kernel slows the replays); with ``table`` the profiler's
+    op table. Returns (device kernels per event, device ms per event)."""
+    from repro_torch.configs.base import fam_replace
     from repro_torch.core import famsim
     donor, p, addrs, gaps, _ = fig08_grid(steps, "cuda")
+    donor = fam_replace(donor, telemetry=telemetry)
     famsim.sweep(donor, p, None, addrs[..., :20], gaps[..., :20], device=DEVICE)
     with _profiled(torch) as prof:
         t0 = time.perf_counter()
         famsim.sweep(donor, p, None, addrs, gaps, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted(_device_events(prof),
-                     key=lambda e: e.time_range.start)
-    ours = [e for e in kernels if "cache_step_kernel" in e.name]
+    kernels = sorted(_raw_device_events(prof), key=lambda e: e[1])
+    ours = [e for e in kernels if "cache_step_kernel" in e[0]]
     check(len(ours) == steps, f"profiler saw {len(ours)} cache_step_kernel launches "
           f"in a graphed {steps}-event sweep, expected {steps}")
-    t_first, t_last = ours[0].time_range.start, ours[-1].time_range.end
-    replayed = [e for e in kernels
-                if e.time_range.start >= t_first and e.time_range.end <= t_last]
-    busy = sum(e.time_range.elapsed_us() for e in replayed)
+    t_first, t_last = ours[0][1] / 1e3, ours[-1][2] / 1e3          # us
+    replayed = [e for e in kernels if e[1] / 1e3 >= t_first and e[2] / 1e3 <= t_last]
+    busy = sum(e[2] - e[1] for e in replayed) / 1e3
     busy_ms = busy / (steps - 1) / 1e3
-    print(f"profile: graphed sweep of {steps} events in {wall:.3f} s wall (capture "
+    print(f"profile (telemetry {telemetry}): graphed sweep of {steps} events in "
+          f"{wall:.3f} s wall (capture "
           f"included); over the replays {len(replayed) / (steps - 1):.1f} device "
           f"kernels/event, device time {busy_ms:.4f} ms/event = "
           f"{busy / (t_last - t_first):.2%} of the profiled span "
           f"({(t_last - t_first) / (steps - 1) / 1e3:.4f} ms/event) and "
           f"{busy_ms / replay_ms:.2%} of the unprofiled replay wall "
           f"({replay_ms:.4f} ms/event, main path); cache_step_kernel "
-          f"{np.mean([e.time_range.elapsed_us() for e in ours]):.2f} us/launch device "
+          f"{np.mean([(e[2] - e[1]) / 1e3 for e in ours]):.2f} us/launch device "
           f"time over {len(ours)} launches", flush=True)
     if table:
         print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    return len(replayed) / (steps - 1), busy_ms
+
+
+def graph_profiles(torch, table, replay_ms):
+    """Phase 10: :func:`profile_window` without telemetry and with
+    TELEMETRY_WINDOWS windows, one after the other early in the process
+    (Kineto loses the first records of windows opened late in a process;
+    phase 15 prints the comparison). Returns {windows: (device kernels an
+    event, device ms an event)}."""
+    return {n: profile_window(torch, table and not n, replay_ms, telemetry=n)
+            for n in (0, TELEMETRY_WINDOWS)}
 
 
 # --------------------------------------------------------------------------
@@ -1999,7 +2046,7 @@ def figures_path(torch, grid_out, gen_s, names=FIGURES, backends=None):
 
 
 # --------------------------------------------------------------------------
-# phases 14-15: fig12's policy matrix and the throughput benchmark
+# phase 14: fig12's policy matrix
 # --------------------------------------------------------------------------
 
 COUNTERS = ("prefetches_issued", "demand_hit_fraction", "corepf_hit_fraction",
@@ -2070,7 +2117,8 @@ def policy_matrix(torch):
     metrics), and ``random`` refused by the CUDA cache step. The counts are
     read around the matrix and random runs: t_pad launches a group of the
     matrix (the ``cuda`` cache step), none in the random combo's. Returns
-    the matrix's launches."""
+    the matrix's launches and the plain fig12 run (telemetry off), which
+    phase 15 holds its telemetry run's shared metrics against."""
     import dataclasses
     from repro_torch.benchmarks import fig12_wfq as f12
     from repro_torch.benchmarks.common import workloads
@@ -2142,11 +2190,237 @@ def policy_matrix(torch):
     else:
         check(False, "kernel_backend='cuda' ran random replacement")
     check(counts()["fused_cache_step"] == before, "cuda + random launched the kernel")
+    return launches, pres
+
+# --------------------------------------------------------------------------
+# phases 15-17: telemetry windows, the Pond fleets, the throughput benchmark
+# --------------------------------------------------------------------------
+
+TELE_GOLDEN = "src/repro_torch/testdata/obs_tenants_golden.json"
+POND_TRACES = "src/repro_torch/testdata/pond_numpy_traces.npz"
+#: telemetry columns holding counts (exact against JAX); the float gauges
+#: (wfq_*_backlog, token_rate, lat_sum) are held at the golden's rtol
+TELE_GAUGES = ("wfq_demand_backlog", "wfq_prefetch_backlog", "token_rate", "lat_sum")
+#: the Pond run on device traces against JAX's golden: every fleet
+#: percentile (and tenant record percentile) in the golden's histogram
+#: bucket or the next one, every fleet slowdown geomean within |log| 0.01
+#: (the port on the CPU measured 0 buckets and |log| 0:
+#: ``python tests/test_torch_tenants.py --compare-device``)
+POND_BUCKETS, POND_LOG_SLOWDOWN = 1, 0.01
+
+
+def _tele_golden():
+    return json.loads((ROOT / TELE_GOLDEN).read_text())
+
+
+def _launch_check(what, info, launched):
+    """One capture a group, fused_cache_step launched t_pad times a group
+    (and the counter saw exactly that), no other kernel."""
+    launches = launched.pop("fused_cache_step")
+    check(info.compiles == info.planned_groups, f"{what}: {info.compiles} captures for "
+          f"{info.planned_groups} groups")
+    for g in info.groups:
+        check(g["launches"] == g["T_pad"], f"{what}: {g['launches']} launches in a group "
+              f"of t_pad {g['T_pad']}")
+    check(launches == sum(g["T_pad"] for g in info.groups),
+          f"{what}: fused_cache_step launched {launches} times")
+    check(not any(launched.values()), f"{what}: unexpected launches {launched}")
     return launches
 
 
+def telemetry_path(torch, profiles, plain):
+    """Phase 15: fig12's quick grid at the golden's T on numpy traces with
+    telemetry windows, through the driver's experiment and row code: rows,
+    ``derived`` and ``windowed_tail`` equal to JAX's, every point's
+    windows equal to JAX's (counts exact, gauges within the golden's
+    rtol), the shared metrics bit-identical to ``plain``, phase 14's run of
+    the same grid with telemetry off, one capture and t_pad launches a
+    group; on the fig08
+    grid at warmup 0 the windows sum to the run totals; phase 10's
+    profiled 200-event windows of the fig08 grid with and without
+    telemetry (``profiles``) side by side. Returns the telemetry run's
+    launches."""
+    import dataclasses
+    from repro_torch.benchmarks import fig12_wfq as f12
+    from repro_torch.benchmarks.common import workloads
+    from repro_torch.configs.base import fam_replace
+    from repro_torch.core import famsim
+    from repro_torch.obs.telemetry import COUNTERS, HIST_OFFSET, counter_index
+    gold = _tele_golden()["telemetry"]
+    check(gold["n_windows"] == TELEMETRY_WINDOWS, f"golden windows {gold['n_windows']}")
+    rtol = json.loads((ROOT / "src/repro_torch/testdata/figures_golden.json")
+                      .read_text())["rtol"]
+    exp = dataclasses.replace(f12.experiment(quick=True, trace_backend="numpy",
+                                             telemetry=gold["n_windows"]), T=gold["T"])
+    check(plain.points[0].T == gold["T"] and plain.points[0].cfg.telemetry == 0 and
+          [p.coords for p in plain.points] == [p.coords for p in exp.points()],
+          "phase 14's plain fig12 run is not this grid without telemetry")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = exp.run(assert_compiles=True, device=DEVICE)
+    step_s = {"fig12": time.perf_counter() - t0}
+    launches = _launch_check("fig12 telemetry", res.info, counts())
+    rows = f12.figure_rows(res.get, workloads(True), res.info.us_per_call())
+    got = {r["name"]: {"derived": r["derived"], "windowed_tail": r["windowed_tail"]}
+           for r in rows}
+    check(got == gold["rows"], f"fig12 telemetry rows differ from JAX's: "
+          f"{[(k, got.get(k), v) for k, v in gold['rows'].items() if got.get(k) != v]}")
+    gauges = [counter_index(c) for c in TELE_GAUGES]
+    counted = [i for i in range(len(COUNTERS)) if i not in gauges]
+    worst, exact = 0.0, True
+    for pt, gp, pt0 in zip(res.points, gold["points"], plain.points):
+        check([list(c) for c in pt.coords] == gp["coords"], "telemetry: point order")
+        m, want = res.metrics_for(pt), np.asarray(gp["telemetry"], np.float32)
+        w = m["telemetry"]
+        check(np.array_equal(w[:, counted], want[:, counted]),
+              f"{pt.coords}: a counted telemetry column differs from JAX's")
+        check(np.allclose(w[:, gauges], want[:, gauges], rtol=rtol, atol=0),
+              f"{pt.coords}: a telemetry gauge differs from JAX's beyond rtol {rtol}")
+        exact &= bool(np.array_equal(w, want))
+        rel = np.abs(w[:, gauges] - want[:, gauges]) / np.maximum(np.abs(want[:, gauges]), 1e-30)
+        worst = max(worst, float(rel.max()))
+        m0 = plain.metrics_for(pt0)
+        check("telemetry" not in m0 and set(m) == set(m0) | {"telemetry"}, "metric keys")
+        for k, v in m0.items():
+            check(np.array_equal(v, m[k]), f"{pt.coords}: {k} differs with telemetry on")
+    info = res.info
+    print(f"telemetry: fig12 quick at T {gold['T']} with {gold['n_windows']} windows, "
+          f"{info.systems} systems in {info.planned_groups} groups ({info.compiles} "
+          f"captures, fused_cache_step launches {launches} = t_pad a group): "
+          f"{len(rows)} rows, derived and windowed_tail equal to JAX's; every point's "
+          f"windows: counts exact, gauges {'bit for bit' if exact else 'within rtol'} "
+          f"(largest relative gauge difference {worst:.3e}); shared metrics bit-identical "
+          f"to telemetry 0 (phase 14's run); executor wall {info.wall_s:.3f} s (captures "
+          f"{info.compile_s:.3f} s, replays {info.run_s:.3f} s) vs telemetry 0 "
+          f"{plain.info.wall_s:.3f} s (captures {plain.info.compile_s:.3f} s, "
+          f"replays {plain.info.run_s:.3f} s)", flush=True)
+    # the fig08 grid at warmup 0: the windows partition the run
+    t_step = time.perf_counter()
+    donor, p, addrs, gaps, _ = fig08_grid(T_CHECK, "cuda")
+    reset_counts()
+    out = famsim.sweep(fam_replace(donor, telemetry=gold["n_windows"]), p, None, addrs,
+                       gaps, warmup_frac=0.0, device=DEVICE)
+    check(counts()["fused_cache_step"] == T_CHECK, "fig08 telemetry: launches")
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    tele = out["telemetry"].astype(np.float64)
+    col = lambda name: tele[..., counter_index(name)].sum(-1)
+    check((col("events") == T_CHECK).all(), "fig08 telemetry: events")
+    check(np.array_equal(col("pf_issued"), out["prefetches_issued"][:, 0]),
+          "fig08 telemetry: windows' pf_issued != prefetches_issued")
+    check(np.array_equal(tele[..., HIST_OFFSET:].sum((-2, -1)), col("demand_fam")),
+          "fig08 telemetry: histogram counts != FAM-bound demands")
+    hit = (col("demand_hit") / np.maximum(col("demand_fam"), 1.0)).astype(np.float32)
+    check(np.allclose(hit, out["demand_hit_fraction"][:, 0], rtol=1e-6, atol=0),
+          "fig08 telemetry: windows' hit fraction != demand_hit_fraction")
+    print(f"telemetry: fig08 grid ({addrs.shape[0]} systems x {T_CHECK} events, warmup 0): "
+          f"the windows sum to the run totals (events, prefetches issued, one histogram "
+          f"count per FAM-bound demand, the hit fraction)", flush=True)
+    step_s["fig08 warmup 0"] = time.perf_counter() - t_step
+    (off_kernels, off_ms), (on_kernels, on_ms) = profiles[0], profiles[TELEMETRY_WINDOWS]
+    print(f"telemetry: graphed fig08 window (phase 10), device kernels an event "
+          f"{on_kernels:.1f} with {TELEMETRY_WINDOWS} windows vs {off_kernels:.1f} without; "
+          f"device time {on_ms:.4f} vs {off_ms:.4f} ms an event", flush=True)
+    print("telemetry phase seconds: " + json.dumps({k: round(v, 3) for k, v in step_s.items()}),
+          flush=True)
+    return launches
+
+
+def pond_traces():
+    """The Pond's stored numpy traces, keyed as the executor's trace memo."""
+    stored = np.load(ROOT / POND_TRACES)
+    out = {}
+    for key in sorted({k.rsplit(":", 1)[0] for k in stored.files}):
+        w, T, seed = key.split(":")
+        out[(w, int(T), int(seed))] = (stored[key + ":lines"].astype(np.int64) * 64,
+                                       stored[key + ":gaps"])
+    return out
+
+
+def _bucket(x):
+    from repro_torch.obs.telemetry import LAT_EDGES
+    return int(sum(x > e for e in LAT_EDGES))
+
+
+def pond_differences(summaries, records, want):
+    """(largest histogram-bucket distance of a fleet or tenant percentile,
+    largest |log| ratio of a fleet slowdown geomean) against ``want``, a
+    golden entry of JAX's summaries and records."""
+    buckets, logs = 0, 0.0
+    for a, b in zip(summaries, want["summaries"]):
+        check(a["fleet"] == b["fleet"], "pond: fleet order")
+        logs = max(logs, abs(float(np.log(a["slowdown_geomean"] / b["slowdown_geomean"]))))
+    for a, b in list(zip(summaries, want["summaries"])) + list(zip(records, want["records"])):
+        for q in ("p50", "p95", "p99"):
+            buckets = max(buckets, abs(_bucket(a[q]) - _bucket(b[q])))
+    return buckets, logs
+
+
+def pond_path(torch):
+    """Phase 16: the quick Pond sweep through ``run.py pond --device`` on
+    the stored numpy traces (every fleet summary and tenant record equal
+    to JAX's golden) and on device traces (within POND_BUCKETS /
+    POND_LOG_SLOWDOWN); each one planned group, one capture and t_pad
+    launches. Returns the two runs' launches."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.experiments import store_traces
+    gold = _tele_golden()["pond"]
+    store_traces(pond_traces())
+    total = 0
+    for backend in ("numpy", "device"):
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = bench_run.main(["pond", "--device", DEVICE, "--trace-backend", backend])
+        wall = time.perf_counter() - t0
+        eng = rows[-1]
+        e = eng["engine"]
+        check(eng["name"] == "pond_engine" and e["planned_groups"] == 1
+              and e["compiles"] == 1, f"pond {backend}: {e['compiles']} captures for "
+              f"{e['planned_groups']} groups")
+        launched = counts()
+        launches = launched.pop("fused_cache_step")
+        g = e["groups"][0]
+        check(g["launches"] == g["T_pad"] == launches == gold["T"],
+              f"pond {backend}: {launches} launches, group {g['launches']} of t_pad {g['T_pad']}")
+        check(not any(launched.values()), f"pond {backend}: unexpected launches {launched}")
+        total += launches
+        check((eng["fleets"], eng["tenant_lanes"], eng["isolated_lanes"]) ==
+              (len(gold["fleets"]), gold["tenant_lanes"], gold["isolated_lanes"]),
+              f"pond {backend}: lanes {eng}")
+        summaries = [{k: v for k, v in r.items()
+                      if k not in ("name", "us_per_call", "tenants_detail")} for r in rows[:-1]]
+        records = [t for r in rows[:-1] for t in r["tenants_detail"]]
+        want = gold[backend]
+        same_s = sum(a == b for a, b in zip(summaries, want["summaries"]))
+        same_r = sum(a == b for a, b in zip(records, want["records"]))
+        check(len(summaries) == len(want["summaries"]) and len(records) == len(want["records"]),
+              f"pond {backend}: {len(summaries)} fleets, {len(records)} records")
+        if backend == "numpy":
+            check(same_s == len(summaries) and same_r == len(records),
+                  f"pond numpy: {len(summaries) - same_s} fleet summaries and "
+                  f"{len(records) - same_r} tenant records differ from JAX's")
+            detail = "every fleet summary and tenant record equal to JAX's"
+        else:
+            buckets, logs = pond_differences(summaries, records, want)
+            check(buckets <= POND_BUCKETS and logs <= POND_LOG_SLOWDOWN,
+                  f"pond device: percentiles {buckets} buckets, slowdown |log| {logs:.5f} "
+                  f"from JAX's")
+            detail = (f"{same_s} of {len(summaries)} fleet summaries and {same_r} of "
+                      f"{len(records)} tenant records equal to JAX's, percentiles within "
+                      f"{buckets} bucket(s), slowdown geomeans within |log| {logs:.5f}")
+        events = e["events"]
+        print(f"pond {backend}: {eng['fleets']} fleets, {eng['tenant_lanes']} tenant + "
+              f"{eng['isolated_lanes']} isolated lanes (S_exec {g['S_exec']}, t_pad "
+              f"{g['T_pad']}); {detail}; one group, {e['compiles']} capture, "
+              f"fused_cache_step launches {launches}; executor wall {e['wall_s']:.3f} s = "
+              f"{events / e['wall_s']:.1f} events/s/device (capture {e['compile_s']:.3f} s, "
+              f"replays {e['run_s']:.3f} s = {e['run_s'] / g['T_pad'] * 1e3:.4f} ms an "
+              f"event, card trace generation {e['trace_device_s']:.3f} s); command wall "
+              f"{wall:.3f} s", flush=True)
+    return total
+
+
 def bench(torch):
-    """Phase 15: ``bench --quick --repeats BENCH_REPEATS`` on both cache-step
+    """Phase 17: ``bench --quick --repeats BENCH_REPEATS`` on both cache-step
     backends (digests equal, asserted by the benchmark), then the full grid
     (fig08 over all 19 workloads) on ``cuda`` once; the counts read around
     each: t_pad launches a ``cuda`` execution, none on ``torch``."""
@@ -2213,12 +2487,14 @@ def main(argv=None):
     gen_s = seed_golden_traces()
     launches, _, replay_ms, grid_out = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
-    phases.run("graph_profile", profile_window, torch, args.profile, replay_ms)
+    profiles = phases.run("graph_profile", graph_profiles, torch, args.profile, replay_ms)
     phases.run("device_traces", device_traces, torch)
     phases.run("figures", figures_path, torch, grid_out, gen_s)
     phases.run("figures_10_12_15", figures_path, torch, grid_out, gen_s, NEW_FIGURES,
                NEW_FIG_BACKENDS)
-    phases.run("policy_matrix", policy_matrix, torch)
+    _, fig12_plain = phases.run("policy_matrix", policy_matrix, torch)
+    phases.run("telemetry", telemetry_path, torch, profiles, fig12_plain)
+    phases.run("pond", pond_path, torch)
     phases.run("bench", bench, torch)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(f"total: {sum(phases.seconds.values()):.3f} s in phases, "

@@ -17,7 +17,9 @@ run the plain version.
 
 Rows (``bench_famsim.json``) and the throughput trajectory
 (``bench_famsim_trajectory.json``, one entry per backend per invocation,
-appended) are written only under ``--out``. The reference's roofline
+appended) are written only under ``--out``; so is, with ``--telemetry``,
+the host span timeline of the measurement (``trace/bench_famsim.json``:
+plan and repeat spans a backend, the executor's inside them). The reference's roofline
 record (``--no-roofline``) waits for the port of ``roofline/``, so the
 option is not offered.
 
@@ -26,6 +28,7 @@ Usage::
     python -m repro_torch.benchmarks.run bench                  # both backends
     python -m repro_torch.benchmarks.run bench --quick          # CI scale
     python -m repro_torch.benchmarks.run bench --kernel-backend torch --repeats 5
+    python -m repro_torch.benchmarks.run bench --quick --telemetry --out /tmp/rows
 """
 from __future__ import annotations
 
@@ -38,9 +41,11 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.benchmarks import fig08_blocksize
-from repro_torch.benchmarks.common import BASELINE, DRAM, save_rows, workloads
+from repro_torch.benchmarks.common import (BASELINE, DRAM, obs_tracer, save_rows,
+                                           workloads)
 from repro_torch.configs.base import KERNEL_BACKENDS
 from repro_torch.experiments import config_axis, execute, flag_axis, workload_axis
+from repro_torch.obs.spans import maybe_span
 
 NAME = "bench_famsim"
 TRAJECTORY = "bench_famsim_trajectory.json"
@@ -79,10 +84,13 @@ def _digest(result) -> str:
 def measure(backend: str, quick: bool, repeats: int, device="cuda") -> dict:
     """Execute the experiment ``repeats`` times on ``backend``; best-of
     ``run_s`` and the summed capture seconds."""
-    plan = _experiment(backend, quick).plan()
+    exp = _experiment(backend, quick)
+    with maybe_span("plan", experiment=exp.name, backend=backend):
+        plan = exp.plan()
     runs, result, compile_s = [], None, 0.0
-    for _ in range(max(repeats, 1)):
-        result = execute(plan, assert_compiles=True, device=device)
+    for rep in range(max(repeats, 1)):
+        with maybe_span("repeat", backend=backend, repeat=rep):
+            result = execute(plan, assert_compiles=True, device=device)
         runs.append(result.info.run_s)
         compile_s += result.info.compile_s
     info = result.info
@@ -132,6 +140,10 @@ def main(argv=None) -> list:
                     help="executions per backend; the best run_s is reported")
     ap.add_argument("--device", default="cuda",
                     help="torch device to simulate on (default: cuda)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="record a host span timeline (plan / repeat / the "
+                         "executor's spans a backend) to DIR/trace/bench_famsim.json "
+                         "under --out")
     ap.add_argument("--out", default=None, metavar="DIR",
                     help=f"write the rows to DIR/{NAME}.json and append the "
                          f"trajectory entries to DIR/{TRAJECTORY}")
@@ -139,7 +151,9 @@ def main(argv=None) -> list:
 
     backends = KERNEL_BACKENDS if args.kernel_backend == "both" \
         else (args.kernel_backend,)
-    measured = [measure(b, args.quick, args.repeats, args.device) for b in backends]
+    with obs_tracer(NAME, int(args.telemetry), args.out):
+        measured = [measure(b, args.quick, args.repeats, args.device)
+                    for b in backends]
     digests = {m["backend"]: m["digest"] for m in measured}
     assert len(set(digests.values())) == 1, (
         "kernel backends disagree on the metrics: the CUDA cache step must "

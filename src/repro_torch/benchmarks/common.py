@@ -17,15 +17,20 @@ runner call on one device (one CUDA graph capture on the card); traces come
 from the ``device`` backend (generated on the card) or the ``numpy``
 backend (host generators).
 
-Not ported: the deprecated ``Point``/``run_points`` shim and the telemetry
-and span surfacing (``obs_tracer``, ``save_telemetry``, ``windowed_tail``),
-which wait for ``obs/``.
+Observability (:mod:`repro_torch.obs`): with ``telemetry`` windows on, a
+driver runs under :func:`obs_tracer` and, under ``out``, writes the span
+timeline to ``<out>/trace/<figure>.json`` and every point's windows to
+``<out>/telemetry/<figure>.json`` (:func:`save_telemetry`); fig10's and
+fig12's rows gain a JSON-only :func:`windowed_tail`.
+
+Not ported: the deprecated ``Point``/``run_points`` shim.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -263,6 +268,94 @@ def trace_gen_compare(plan, device="cuda") -> dict:
         "host_speedup": round(host_np / max(host_dev, 1e-9), 1),
         "device_not_slower": bool(host_dev <= host_np),
     }
+
+
+# ---------------------------------------------------------------------------
+# observability surfacing (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = "trace"
+TELEMETRY_DIR = "telemetry"
+
+
+@contextmanager
+def obs_tracer(figure: str, telemetry: int, out=None):
+    """Install a host span tracer for one figure run.
+
+    With ``telemetry == 0`` this is a no-op (the default path records
+    nothing). Otherwise every instrumented layer under the block
+    (``Experiment.run``'s plan, the executor's trace staging, runs,
+    captures and fetches) lands in one nested timeline, saved as Chrome
+    trace-event JSON to ``<out>/trace/<figure>.json`` when ``out`` is
+    given (load it in ui.perfetto.dev); nothing is written otherwise."""
+    if not telemetry:
+        yield None
+        return
+    from repro_torch.obs import SpanTracer, set_tracer
+    tracer = SpanTracer(process_name=f"repro_torch.benchmarks:{figure}")
+    prev = set_tracer(tracer)
+    try:
+        with tracer.span(figure, cat="figure", telemetry=telemetry):
+            yield tracer
+    finally:
+        set_tracer(prev)
+        if out is not None:
+            tracer.save(Path(out) / TRACE_DIR / f"{figure}.json")
+
+
+def save_telemetry(figure: str, result: ExperimentResult, n_windows: int,
+                   out=None) -> Optional[Path]:
+    """Write every point's windowed counter matrix to
+    ``<out>/telemetry/<figure>.json``, the payload ``python -m
+    repro_torch.obs report`` renders. Returns None (and writes nothing)
+    without ``out`` or when the result carries no telemetry."""
+    from repro_torch.obs import COUNTERS, LAT_EDGES
+    points = []
+    for pt in result.points:
+        m = result.metrics_for(pt)
+        if "telemetry" not in m:
+            continue
+        points.append({"coords": dict(pt.coords),
+                       "nodes": len(pt.workloads), "T": pt.T,
+                       "windows": np.asarray(m["telemetry"]).tolist()})
+    if out is None or not points:
+        return None
+    path = Path(out) / TELEMETRY_DIR / f"{figure}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(
+        {"figure": figure, "n_windows": n_windows,
+         "counters": list(COUNTERS), "lat_edges": list(LAT_EDGES),
+         "points": points}))
+    return path
+
+
+def windowed_tail(metrics) -> Optional[dict]:
+    """JSON-only windowed tail-latency summary (None when telemetry is
+    off): per-window p95/p99 plus overall p50/p95/p99, estimated from the
+    in-run histogram buckets (:mod:`repro_torch.obs.report`). Accepts one
+    point's metrics dict or a raw ``(n_windows, N_COUNTERS)`` matrix
+    (histogram counts sum across points, so callers may aggregate). Rides
+    the JSON rows of fig10 / fig12, never the ``derived`` string."""
+    if isinstance(metrics, dict):
+        if "telemetry" not in metrics:
+            return None
+        w = np.asarray(metrics["telemetry"])
+    else:
+        w = np.asarray(metrics)
+    from repro_torch.obs.report import overall_percentiles, window_percentiles
+    return {"overall": overall_percentiles(w),
+            **window_percentiles(w, qs=(95, 99))}
+
+
+def save_outputs(figure: str, rows: List[dict], result: ExperimentResult,
+                 telemetry: int, out) -> None:
+    """A driver's files under ``out`` (nothing without it): its rows and,
+    with telemetry on, every point's windows."""
+    if out is None:
+        return
+    if telemetry:
+        save_telemetry(figure, result, telemetry, out)
+    save_rows(figure, rows, out)
 
 
 def save_rows(figure: str, rows: List[dict], out) -> Path:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from repro_torch.benchmarks.common import (BASELINE, DRAM, FamConfig, eager_check,
                                            engine_row, fam_replace, geomean,
-                                           save_rows, workloads)
+                                           obs_tracer, save_outputs, workloads)
 from repro_torch.experiments import (Experiment, config_axis, flag_axis,
                                      workload_axis)
 
@@ -26,11 +26,11 @@ T = 12_000
 
 
 def experiment(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda") -> Experiment:
+               kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     return Experiment(
         name=NAME, T=T,
         base=fam_replace(FamConfig(), num_nodes=1,
-                         kernel_backend=kernel_backend),
+                         kernel_backend=kernel_backend, telemetry=telemetry),
         trace_backend=trace_backend,
         axes=(config_axis("block", BLOCK_SIZES, param="block_bytes"),
               workload_axis(workloads(quick)),
@@ -61,10 +61,10 @@ def figure_rows(get, wls, us_per_call: float):
 
 
 def run_figure(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda", device="cuda"):
+               kernel_backend: str = "cuda", device="cuda", telemetry: int = 0):
     """(figure rows, ExperimentResult): the whole grid in one executor
     call, as one compile group."""
-    res = experiment(quick, trace_backend, kernel_backend).run(
+    res = experiment(quick, trace_backend, kernel_backend, telemetry).run(
         assert_compiles=True, device=device)
     info = res.info
     assert info.planned_groups == 1, info.groups  # dynamic geometry: 1 group
@@ -84,15 +84,19 @@ def engine(res, device="cuda", check_points=None) -> dict:
 
 def run_result(quick: bool = True, trace_backend: str = "device",
                kernel_backend: str = "cuda", device="cuda", out=None,
-               check_points=None):
-    """(rows, ExperimentResult): :func:`run_figure`, then :func:`engine`."""
-    rows, res = run_figure(quick, trace_backend, kernel_backend, device)
+               check_points=None,
+               telemetry: int = 0):
+    """(rows, ExperimentResult): :func:`run_figure` (under the span tracer
+    when ``telemetry``), then :func:`engine`."""
+    with obs_tracer(NAME, telemetry, out):
+        rows, res = run_figure(quick, trace_backend, kernel_backend, device,
+                               telemetry)
     rows.append(engine(res, device, check_points))
-    if out is not None:
-        save_rows(NAME, rows, out)
+    save_outputs(NAME, rows, res, telemetry, out)
     return rows, res
 
 
 def run(quick: bool = True, trace_backend: str = "device",
-        kernel_backend: str = "cuda", device="cuda", out=None):
-    return run_result(quick, trace_backend, kernel_backend, device, out)[0]
+        kernel_backend: str = "cuda", device="cuda", out=None, telemetry: int = 0):
+    return run_result(quick, trace_backend, kernel_backend, device, out,
+                      telemetry=telemetry)[0]

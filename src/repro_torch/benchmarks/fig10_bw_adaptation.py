@@ -11,8 +11,9 @@ prefetches issued -18%/-21% (2/4 nodes).
 The four prefetch configs are per-system flags over the default
 ``PolicySet``, so the planner makes ONE compile group per node count (the
 node count sets the arbitration width N): three groups, three CUDA graph
-captures on the card. Not ported: the ``telemetry`` argument and the
-rows' ``windowed_tail``, which wait for ``obs/``.
+captures on the card. With ``telemetry`` windows on, each per-node-count
+row gains a JSON-only ``windowed_tail`` per variant (histogram counts
+summed over the workloads); ``derived`` never changes.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import numpy as np
 
 from repro_torch.benchmarks.common import (ADAPT, BASELINE, CORE, DRAM, FamConfig,
                                            checked_info_row, fam_replace, geomean,
-                                           save_rows, workloads)
+                                           obs_tracer, save_outputs, windowed_tail,
+                                           workloads)
 from repro_torch.experiments import Experiment, flag_axis, nodes_axis, workload_axis
 
 NAME = "fig10_bw_adaptation"
@@ -30,10 +32,11 @@ VARIANTS = {"base": BASELINE, "core": CORE, "dram": DRAM, "adapt": ADAPT}
 
 
 def experiment(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda") -> Experiment:
+               kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     return Experiment(
         name=NAME, T=T,
-        base=fam_replace(FamConfig(), kernel_backend=kernel_backend),
+        base=fam_replace(FamConfig(), kernel_backend=kernel_backend,
+                         telemetry=telemetry),
         trace_backend=trace_backend,
         axes=(nodes_axis(NODE_COUNTS),
               workload_axis(workloads(quick)),
@@ -42,7 +45,8 @@ def experiment(quick: bool = True, trace_backend: str = "device",
 
 def figure_rows(get, wls, us_per_call: float):
     """The per-node-count rows and the fig11 row from
-    ``get(nodes=, workload=, variant=)``."""
+    ``get(nodes=, workload=, variant=)``; with telemetry in the metrics,
+    each per-node-count row's ``windowed_tail``."""
     rows = []
     per_wl_4node = {}
     for n in NODE_COUNTS:
@@ -66,7 +70,7 @@ def figure_rows(get, wls, us_per_call: float):
             if n == 4:
                 per_wl_4node[w] = {k: float(out[k]["ipc"].mean() / b_ipc)
                                    for k in ("core", "dram", "adapt")}
-        rows.append({
+        row = {
             "name": f"fig10_nodes{n}",
             "us_per_call": us_per_call,
             "derived": (f"core={geomean(agg['core']):.3f};"
@@ -78,7 +82,16 @@ def figure_rows(get, wls, us_per_call: float):
             "rel_fam_latency": {k: geomean(v) for k, v in rel_lat.items()},
             "rel_prefetches_adapt": float(np.mean(rel_pf)),
             "hit_fractions": {k: float(np.mean(v)) for k, v in hits.items()},
-        })
+        }
+        if "telemetry" in get(nodes=n, workload=wls[0], variant="base"):
+            # JSON-only windowed tails: histogram counts summed over the
+            # workloads, one aggregate per variant
+            row["windowed_tail"] = {
+                k: windowed_tail(sum(np.asarray(get(nodes=n, workload=w,
+                                                    variant=k)["telemetry"])
+                                     for w in wls))
+                for k in VARIANTS}
+        rows.append(row)
     rows.append({"name": "fig11_per_workload_4node", "us_per_call": 0.0,
                  "derived": "see per_workload field",
                  "per_workload": per_wl_4node})
@@ -86,10 +99,10 @@ def figure_rows(get, wls, us_per_call: float):
 
 
 def run_figure(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda", device="cuda"):
+               kernel_backend: str = "cuda", device="cuda", telemetry: int = 0):
     """(figure rows, ExperimentResult): the whole grid in one executor
     call, one compile group per node count."""
-    res = experiment(quick, trace_backend, kernel_backend).run(
+    res = experiment(quick, trace_backend, kernel_backend, telemetry).run(
         assert_compiles=True, device=device)
     info = res.info
     assert info.planned_groups == len(NODE_COUNTS), info.groups
@@ -104,15 +117,18 @@ def engine(res, device="cuda", check_points: int = 0) -> dict:
 
 def run_result(quick: bool = True, trace_backend: str = "device",
                kernel_backend: str = "cuda", device="cuda", out=None,
-               check_points: int = 0):
-    """(rows, ExperimentResult): :func:`run_figure`, then :func:`engine`."""
-    rows, res = run_figure(quick, trace_backend, kernel_backend, device)
+               check_points: int = 0, telemetry: int = 0):
+    """(rows, ExperimentResult): :func:`run_figure` (under the span tracer
+    when ``telemetry``), then :func:`engine`."""
+    with obs_tracer(NAME, telemetry, out):
+        rows, res = run_figure(quick, trace_backend, kernel_backend, device,
+                               telemetry)
     rows.append(engine(res, device, check_points))
-    if out is not None:
-        save_rows(NAME, rows, out)
+    save_outputs(NAME, rows, res, telemetry, out)
     return rows, res
 
 
 def run(quick: bool = True, trace_backend: str = "device",
-        kernel_backend: str = "cuda", device="cuda", out=None):
-    return run_result(quick, trace_backend, kernel_backend, device, out)[0]
+        kernel_backend: str = "cuda", device="cuda", out=None, telemetry: int = 0):
+    return run_result(quick, trace_backend, kernel_backend, device, out,
+                      telemetry=telemetry)[0]

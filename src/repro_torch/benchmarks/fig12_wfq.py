@@ -17,8 +17,9 @@ bestoffset}), each row measured against the all-default combo. The matrix's
 ``spp+wfq`` rows equal the plain run's ``w2`` rows byte for byte (same
 traces, same program, default weight 2). A combo with ``random``
 replacement needs ``kernel_backend="torch"``: the CUDA cache step raises
-for it. Not ported: the ``telemetry`` argument and ``windowed_tail``,
-which wait for ``obs/``.
+for it. With ``telemetry`` windows on, every row gains a JSON-only
+``windowed_tail`` (the tail latency WFQ is judged on; histogram counts
+summed over the workloads); ``derived`` never changes.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from typing import Mapping, Optional
 import numpy as np
 
 from repro_torch.benchmarks.common import (DRAM, WFQ, FamConfig, checked_info_row,
-                                           fam_replace, geomean, save_rows,
-                                           workloads)
+                                           fam_replace, geomean, obs_tracer,
+                                           save_outputs, windowed_tail, workloads)
 from repro_torch.experiments import (Experiment, PolicySet, flag_axis, nodes_axis,
                                      policy_axis, workload_axis)
 
@@ -55,10 +56,11 @@ def _baseline_label(policies: Mapping[str, PolicySet]) -> str:
 
 
 def experiment(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda") -> Experiment:
+               kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     return Experiment(
         name=NAME, T=T,
-        base=fam_replace(FamConfig(), kernel_backend=kernel_backend),
+        base=fam_replace(FamConfig(), kernel_backend=kernel_backend,
+                         telemetry=telemetry),
         trace_backend=trace_backend,
         axes=(nodes_axis(NODE_COUNTS),
               workload_axis(workloads(quick)),
@@ -67,7 +69,7 @@ def experiment(quick: bool = True, trace_backend: str = "device",
 
 def policy_experiment(policies: Mapping[str, PolicySet], quick: bool = True,
                       trace_backend: str = "device",
-                      kernel_backend: str = "cuda") -> Experiment:
+                      kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     """The fig12 grid with the flag-variant axis replaced by a policy axis:
     nodes x workloads x PolicySet combos, prefetching on (flags=DRAM).
     Same-tag combos (spp+fifo, spp+wfq, any weight) share a compile group
@@ -75,7 +77,8 @@ def policy_experiment(policies: Mapping[str, PolicySet], quick: bool = True,
     bestoffset, random) plan into their own groups."""
     return Experiment(
         name=POLICY_NAME, T=T,
-        base=fam_replace(FamConfig(), kernel_backend=kernel_backend),
+        base=fam_replace(FamConfig(), kernel_backend=kernel_backend,
+                         telemetry=telemetry),
         flags=DRAM, trace_backend=trace_backend,
         axes=(nodes_axis(NODE_COUNTS),
               workload_axis(workloads(quick)),
@@ -84,11 +87,14 @@ def policy_experiment(policies: Mapping[str, PolicySet], quick: bool = True,
 
 def _rows_for(get, wls, variants, name_of, us_per_call: float):
     """Each variant vs its baseline, per node count: ``variants`` maps a
-    row label to (lookup kwargs, baseline kwargs) of ``get``."""
+    row label to (lookup kwargs, baseline kwargs) of ``get``. With
+    telemetry in the metrics, each row's ``windowed_tail`` (histogram
+    counts summed over the workloads)."""
     rows = []
     for n in NODE_COUNTS:
         for label, (kw, base_kw) in variants.items():
             gains, lat, pf, dh, ch = [], [], [], [], []
+            tele = None
             for w in wls:
                 fifo = get(nodes=n, workload=w, **base_kw)
                 var = get(nodes=n, workload=w, **kw)
@@ -99,7 +105,10 @@ def _rows_for(get, wls, variants, name_of, us_per_call: float):
                           max(fifo["prefetches_issued"].sum(), 1.0))
                 dh.append(var["demand_hit_fraction"].mean())
                 ch.append(var["corepf_hit_fraction"].mean())
-            rows.append({
+                if "telemetry" in var:
+                    t = np.asarray(var["telemetry"])
+                    tele = t if tele is None else tele + t
+            row = {
                 "name": name_of(n, label),
                 "us_per_call": us_per_call,
                 "derived": (f"ipc_vs_fifo={geomean(gains):.3f};"
@@ -111,7 +120,10 @@ def _rows_for(get, wls, variants, name_of, us_per_call: float):
                 "rel_prefetches": float(np.mean(pf)),
                 "demand_hit_fraction": float(np.mean(dh)),
                 "corepf_hit_fraction": float(np.mean(ch)),
-            })
+            }
+            if tele is not None:
+                row["windowed_tail"] = windowed_tail(tele)
+            rows.append(row)
     return rows
 
 
@@ -138,17 +150,18 @@ def policy_rows(get, wls, policies: Mapping[str, PolicySet], us_per_call: float)
 
 def run_figure(quick: bool = True, trace_backend: str = "device",
                kernel_backend: str = "cuda", device="cuda",
-               policies: Optional[Mapping[str, PolicySet]] = None):
+               policies: Optional[Mapping[str, PolicySet]] = None,
+               telemetry: int = 0):
     """(figure rows, ExperimentResult): the grid (or with ``policies`` the
     policy matrix) in one executor call."""
     wls = workloads(quick)
     if policies is not None:
         _baseline_label(policies)                # before running anything
-        res = policy_experiment(policies, quick, trace_backend,
-                                kernel_backend).run(assert_compiles=True,
-                                                    device=device)
+        res = policy_experiment(policies, quick, trace_backend, kernel_backend,
+                                telemetry).run(assert_compiles=True,
+                                               device=device)
         return policy_rows(res.get, wls, policies, res.info.us_per_call()), res
-    res = experiment(quick, trace_backend, kernel_backend).run(
+    res = experiment(quick, trace_backend, kernel_backend, telemetry).run(
         assert_compiles=True, device=device)
     assert res.info.planned_groups == len(NODE_COUNTS), res.info.groups
     return figure_rows(res.get, wls, res.info.us_per_call()), res
@@ -169,17 +182,21 @@ def engine(res, device="cuda", check_points: int = 0,
 def run_result(quick: bool = True, trace_backend: str = "device",
                kernel_backend: str = "cuda", device="cuda", out=None,
                check_points: int = 0,
-               policies: Optional[Mapping[str, PolicySet]] = None):
-    """(rows, ExperimentResult): :func:`run_figure`, then :func:`engine`."""
-    rows, res = run_figure(quick, trace_backend, kernel_backend, device, policies)
+               policies: Optional[Mapping[str, PolicySet]] = None,
+               telemetry: int = 0):
+    """(rows, ExperimentResult): :func:`run_figure` (under the span tracer
+    when ``telemetry``), then :func:`engine`."""
+    name = NAME if policies is None else POLICY_NAME
+    with obs_tracer(name, telemetry, out):
+        rows, res = run_figure(quick, trace_backend, kernel_backend, device,
+                               policies, telemetry)
     rows.append(engine(res, device, check_points, policies))
-    if out is not None:
-        save_rows(NAME if policies is None else POLICY_NAME, rows, out)
+    save_outputs(name, rows, res, telemetry, out)
     return rows, res
 
 
 def run(quick: bool = True, trace_backend: str = "device",
         kernel_backend: str = "cuda", device="cuda", out=None,
-        policies: Optional[Mapping[str, PolicySet]] = None):
+        policies: Optional[Mapping[str, PolicySet]] = None, telemetry: int = 0):
     return run_result(quick, trace_backend, kernel_backend, device, out,
-                      policies=policies)[0]
+                      policies=policies, telemetry=telemetry)[0]

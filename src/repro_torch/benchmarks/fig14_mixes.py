@@ -19,7 +19,7 @@ import numpy as np
 
 from repro_torch.benchmarks.common import (ADAPT, BASELINE, CORE, DRAM, WFQ,
                                            FamConfig, eager_check, fam_replace,
-                                           geomean, info_row, save_rows,
+                                           geomean, info_row, obs_tracer, save_outputs,
                                            trace_gen_compare)
 from repro_torch.experiments import Experiment, flag_axis, mix_axis, plan_points
 
@@ -45,10 +45,11 @@ def _mixes(quick: bool):
 
 
 def experiment(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda") -> Experiment:
+               kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     return Experiment(
         name=NAME, T=T,
-        base=fam_replace(FamConfig(), kernel_backend=kernel_backend),
+        base=fam_replace(FamConfig(), kernel_backend=kernel_backend,
+                         telemetry=telemetry),
         trace_backend=trace_backend,
         axes=(mix_axis(_mixes(quick)),
               flag_axis("variant", {"base": BASELINE, **CONFIGS})))
@@ -79,10 +80,10 @@ def figure_rows(get, mixes, us_per_call: float):
 
 
 def run_figure(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda", device="cuda"):
+               kernel_backend: str = "cuda", device="cuda", telemetry: int = 0):
     """(figure rows, ExperimentResult): the whole grid in one executor
     call, as one compile group."""
-    res = experiment(quick, trace_backend, kernel_backend).run(
+    res = experiment(quick, trace_backend, kernel_backend, telemetry).run(
         assert_compiles=True, device=device)
     info = res.info
     assert info.planned_groups == 1, info.groups  # one policy program
@@ -104,15 +105,19 @@ def engine(res, device="cuda", quick: bool = True) -> dict:
 
 
 def run_result(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda", device="cuda", out=None):
-    """(rows, ExperimentResult): :func:`run_figure`, then :func:`engine`."""
-    rows, res = run_figure(quick, trace_backend, kernel_backend, device)
+               kernel_backend: str = "cuda", device="cuda", out=None,
+               telemetry: int = 0):
+    """(rows, ExperimentResult): :func:`run_figure` (under the span tracer
+    when ``telemetry``), then :func:`engine`."""
+    with obs_tracer(NAME, telemetry, out):
+        rows, res = run_figure(quick, trace_backend, kernel_backend, device,
+                               telemetry)
     rows.append(engine(res, device, quick))
-    if out is not None:
-        save_rows(NAME, rows, out)
+    save_outputs(NAME, rows, res, telemetry, out)
     return rows, res
 
 
 def run(quick: bool = True, trace_backend: str = "device",
-        kernel_backend: str = "cuda", device="cuda", out=None):
-    return run_result(quick, trace_backend, kernel_backend, device, out)[0]
+        kernel_backend: str = "cuda", device="cuda", out=None, telemetry: int = 0):
+    return run_result(quick, trace_backend, kernel_backend, device, out,
+                      telemetry=telemetry)[0]

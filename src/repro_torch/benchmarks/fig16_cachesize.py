@@ -16,7 +16,7 @@ import numpy as np
 
 from repro_torch.benchmarks.common import (BASELINE, WFQ, FamConfig, eager_check,
                                            engine_row, fam_replace, geomean,
-                                           save_rows, workloads)
+                                           obs_tracer, save_outputs, workloads)
 from repro_torch.experiments import (Experiment, config_axis, flag_axis,
                                      workload_axis)
 
@@ -29,10 +29,11 @@ CHECK_POINTS = 4       # the reference's engine-check subset
 
 
 def experiment(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda") -> Experiment:
+               kernel_backend: str = "cuda", telemetry: int = 0) -> Experiment:
     return Experiment(
         name=NAME, T=T,
-        base=fam_replace(FamConfig(), kernel_backend=kernel_backend),
+        base=fam_replace(FamConfig(), kernel_backend=kernel_backend,
+                         telemetry=telemetry),
         nodes=4, trace_backend=trace_backend,
         axes=(config_axis("cache", [kb << 10 for kb in SIZES_KB],
                           param="dram_cache_bytes",
@@ -63,10 +64,10 @@ def figure_rows(get, wls, us_per_call: float):
 
 
 def run_figure(quick: bool = True, trace_backend: str = "device",
-               kernel_backend: str = "cuda", device="cuda"):
+               kernel_backend: str = "cuda", device="cuda", telemetry: int = 0):
     """(figure rows, ExperimentResult): the whole grid in one executor
     call, as one compile group."""
-    res = experiment(quick, trace_backend, kernel_backend).run(
+    res = experiment(quick, trace_backend, kernel_backend, telemetry).run(
         assert_compiles=True, device=device)
     info = res.info
     assert info.planned_groups == 1, info.groups  # dynamic geometry: 1 group
@@ -86,15 +87,19 @@ def engine(res, device="cuda", check_points=CHECK_POINTS) -> dict:
 
 def run_result(quick: bool = True, trace_backend: str = "device",
                kernel_backend: str = "cuda", device="cuda", out=None,
-               check_points=CHECK_POINTS):
-    """(rows, ExperimentResult): :func:`run_figure`, then :func:`engine`."""
-    rows, res = run_figure(quick, trace_backend, kernel_backend, device)
+               check_points=CHECK_POINTS,
+               telemetry: int = 0):
+    """(rows, ExperimentResult): :func:`run_figure` (under the span tracer
+    when ``telemetry``), then :func:`engine`."""
+    with obs_tracer(NAME, telemetry, out):
+        rows, res = run_figure(quick, trace_backend, kernel_backend, device,
+                               telemetry)
     rows.append(engine(res, device, check_points))
-    if out is not None:
-        save_rows(NAME, rows, out)
+    save_outputs(NAME, rows, res, telemetry, out)
     return rows, res
 
 
 def run(quick: bool = True, trace_backend: str = "device",
-        kernel_backend: str = "cuda", device="cuda", out=None):
-    return run_result(quick, trace_backend, kernel_backend, device, out)[0]
+        kernel_backend: str = "cuda", device="cuda", out=None, telemetry: int = 0):
+    return run_result(quick, trace_backend, kernel_backend, device, out,
+                      telemetry=telemetry)[0]

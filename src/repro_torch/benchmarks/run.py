@@ -1,7 +1,7 @@
 """Run the port's paper-figure drivers and print ``name,us_per_call,derived``.
 
 Counterpart of the reference's ``benchmarks/run.py`` (fig08, fig10, fig12,
-fig14, fig15, fig16 and the ``bench`` subcommand)::
+fig14, fig15, fig16 and the ``bench`` and ``pond`` subcommands)::
 
     python -m repro_torch.benchmarks.run                       # all, quick, on the card
     python -m repro_torch.benchmarks.run fig10 fig12 fig15
@@ -17,10 +17,20 @@ that support it (fig12); ``random`` replacement needs
     python -m repro_torch.benchmarks.run --policies scheduler=fifo,wfq,strict \\
         --policies prefetch=spp,nextline,bestoffset fig12
 
+``--telemetry [N]`` turns on the observability layer (:mod:`repro_torch.obs`):
+N in-run telemetry windows a run (bare flag: 32), a host span timeline, and
+with ``--out DIR`` the files ``DIR/telemetry/<figure>.json`` (render them
+with ``python -m repro_torch.obs report``) and ``DIR/trace/<figure>.json``::
+
+    python -m repro_torch.benchmarks.run fig12 --telemetry --out /tmp/rows
+    python -m repro_torch.obs report /tmp/rows/telemetry/fig12_wfq.json
+
 ``bench`` hands the remaining arguments to the throughput benchmark
-(:mod:`repro_torch.benchmarks.bench_famsim`)::
+(:mod:`repro_torch.benchmarks.bench_famsim`), ``pond`` to the multi-tenant
+fleet scenario (:mod:`repro_torch.benchmarks.fig_pond`)::
 
     python -m repro_torch.benchmarks.run bench --quick
+    python -m repro_torch.benchmarks.run pond             # quick fleets, on the card
 
 ``--device`` defaults to ``cuda`` (the run fails without a card rather
 than fall back to the CPU). JSON rows are written only under ``--out``.
@@ -45,13 +55,18 @@ def _figures():
             "fig15": fig15_allocation, "fig16": fig16_cachesize}
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run the figures (None), or the ``bench`` / ``pond`` subcommand
+    (returning its rows)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "bench":
         # the throughput benchmark owns its whole argument tail
         from repro_torch.benchmarks import bench_famsim
-        bench_famsim.main(argv[1:])
-        return
+        return bench_famsim.main(argv[1:])
+    if argv and argv[0] == "pond":
+        # so does the multi-tenant fleet scenario
+        from repro_torch.benchmarks import fig_pond
+        return fig_pond.main(argv[1:])
     ap = argparse.ArgumentParser(
         description="Run the port's paper-figure drivers through "
                     "repro_torch.experiments")
@@ -79,6 +94,13 @@ def main(argv=None) -> None:
                          "figures that support it (fig12); unlisted kinds keep "
                          "their defaults, and the all-default combo is the "
                          "baseline")
+    ap.add_argument("--telemetry", nargs="?", const=32, default=0, type=int,
+                    metavar="N_WINDOWS",
+                    help="observability (repro_torch.obs): N_WINDOWS in-run "
+                         "telemetry windows a run (bare flag: 32) and a host span "
+                         "timeline; with --out written to DIR/telemetry/<figure>.json "
+                         "and DIR/trace/<figure>.json. A static tag: 0 (default) "
+                         "runs the step without it")
     ap.add_argument("--out", default=None, metavar="DIR",
                     help="write each figure's JSON rows to DIR/<figure>.json")
     ap.add_argument("--plan", action="store_true",
@@ -108,7 +130,7 @@ def main(argv=None) -> None:
         from repro_torch.benchmarks.common import plan_lines
         for mod in figures.values():
             kw = dict(quick=not args.full, trace_backend=args.trace_backend,
-                      kernel_backend=args.kernel_backend)
+                      kernel_backend=args.kernel_backend, telemetry=args.telemetry)
             exp = mod.experiment(**kw) if combos is None else \
                 mod.policy_experiment(combos, **kw)
             for line in plan_lines(exp.plan(), exp.axes):
@@ -121,7 +143,7 @@ def main(argv=None) -> None:
         kw = {} if combos is None else {"policies": combos}
         rows = mod.run(quick=not args.full, trace_backend=args.trace_backend,
                        kernel_backend=args.kernel_backend, device=args.device,
-                       out=args.out, **kw)
+                       out=args.out, telemetry=args.telemetry, **kw)
         for r in rows:
             print(f"{r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"",
                   flush=True)

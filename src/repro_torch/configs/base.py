@@ -336,7 +336,8 @@ class FamConfig:
     # cache-step implementation: "cuda" = the hand-written kernel (its plain
     # version on CPU tensors), "torch" = the plain version on any device
     kernel_backend: str = "cuda"
-    # in-run telemetry windows (0 = off); not ported yet, must stay 0
+    # in-run telemetry windows (repro_torch.obs; 0 = off, the default): a
+    # static tag in geometry_free_shape(), one graph capture per value
     telemetry: int = 0
 
     @property

@@ -25,8 +25,10 @@ window instead of some 700 kernels per event; on CPU tensors the same
 windows run step by step.
 
 ``FamConfig`` gives the shapes (the padded cache allocation, table sizes,
-degrees); ``FamParams`` every per-system value, the effective cache
-geometry included; a ``PolicySet`` names the policy implementations.
+degrees) and the static ``telemetry`` tag (:mod:`repro_torch.obs`: windowed
+counters in the carry, a ``"telemetry"`` metric); ``FamParams`` every
+per-system value, the effective cache geometry included; a ``PolicySet``
+names the policy implementations.
 State tensors are updated in place where JAX returns new arrays.
 
 Entry points (:func:`build_sim`, :func:`sweep`, :func:`simulate`) take a
@@ -50,6 +52,8 @@ from repro_torch.core.fam_params import FamParams, stack_params, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.kernels.famsim_step import (cache_step, fused_cache_step,
                                              fused_replacement_mode)
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.spans import maybe_span
 from repro_torch.policies import DEFAULT_POLICY_SET, PolicySet, SimFlags
 
 __all__ = ["SimFlags", "PolicySet", "NodeState", "build_sim", "sweep",
@@ -225,6 +229,12 @@ def _phase_a(cfg: FamConfig, p: FamParams, ns: NodeState, addr, gap, warm,
     # core prefetches may hit the DRAM cache (probed by the cache step)
     cpf_hits = cpf_raw_hits & p.dram_prefetch[..., None]
     cpf_to_fam = cpf_valid & ~cpf_hits
+    if cfg.telemetry:
+        # telemetry-only signal (repro_torch.obs): prefetch candidates
+        # dropped because the block was already cached or in flight; only
+        # under the static tag, so the default step launches nothing more
+        pf_redundant = (cand_valid & ~fresh &
+                        (is_fam & p.dram_prefetch)[..., None]).to(F32).sum(-1)
 
     ns = ns._replace(clock=clock, pf=pf_state, cache=cache, queue=q,
                      throttle=thr,
@@ -239,12 +249,16 @@ def _phase_a(cfg: FamConfig, p: FamParams, ns: NodeState, addr, gap, warm,
                pf_blocks=cand_gblock, pf_valid=pf_valid, cpf_lines=cpf_lines,
                cpf_valid=cpf_valid, cpf_hits=cpf_hits & cpf_valid,
                cpf_to_fam=cpf_to_fam, gap=gap, warm=warm, live=live)
+    if cfg.telemetry:
+        req["pf_redundant"] = pf_redundant
     return ns, req
 
 
 def _phase_c(cfg: FamConfig, p: FamParams, ns: NodeState, req,
-             d_fin, pf_fin, cpf_fin, impls) -> NodeState:
-    """Per-node post-arbitration accounting + queue fills."""
+             d_fin, pf_fin, cpf_fin, impls):
+    """Per-node post-arbitration accounting + queue fills. Returns
+    ``(ns, lat)``: the per-event demand latency rides out for the
+    telemetry accumulator (unused with telemetry off)."""
     ad_pol = p.policy["adaptation"]
     clock = ns.clock
     local_lat = p.local_mem_latency
@@ -291,7 +305,7 @@ def _phase_c(cfg: FamConfig, p: FamParams, ns: NodeState, req,
     stall = torch.where(live, lat / (p.mlp * p.cores_per_node), 0.0)
     w = req["warm"].to(F32)
     f = lambda b: b.to(F32)
-    return ns._replace(
+    ns = ns._replace(
         clock=clock + stall, queue=queue, throttle=thr,
         core_buf_line=buf_line, core_buf_fin=buf_fin, core_buf_ptr=ptr,
         instr=ns.instr + w * req["gap"] * p.base_ipc,
@@ -303,6 +317,7 @@ def _phase_c(cfg: FamConfig, p: FamParams, ns: NodeState, req,
         corepf_fam=ns.corepf_fam + w * f(req["cpf_valid"]).sum(-1),
         corepf_hit=ns.corepf_hit + w * f(req["cpf_hits"]).sum(-1),
         pf_issued=ns.pf_issued + w * f(n_pf))
+    return ns, lat
 
 
 def _make_step(cfg: FamConfig, num_nodes: int,
@@ -310,11 +325,15 @@ def _make_step(cfg: FamConfig, num_nodes: int,
     """The per-event step: step(p, (nodes, fam_busy), (addr, gap, warm,
     live)) -> (nodes, fam_busy), with ``p`` the per-node params view
     (fields (S, 1)), addr/gap (S, N), warm/live (S, 1) and fam_busy (S, 2).
-    Validates the configuration when built, not mid-run."""
+    Validates the configuration when built, not mid-run.
+
+    ``cfg.telemetry`` (a static tag, see :mod:`repro_torch.obs`) extends
+    the carry with the windowed-counter accumulator (S, n_windows, C) and
+    the inputs with each system's window index (S,) int32:
+    step(p, (nodes, fam_busy, tele), (addr, gap, warm, live, win)). With
+    the default 0 the step is built exactly as without it."""
     impls = _resolve(policies).impls()
-    if cfg.telemetry:
-        raise NotImplementedError("telemetry (FamConfig.telemetry > 0) is "
-                                  "not ported yet")
+    n_win = cfg.telemetry
     if cfg.kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"FamConfig.kernel_backend={cfg.kernel_backend!r}; "
                          f"expected one of {KERNEL_BACKENDS}")
@@ -323,8 +342,12 @@ def _make_step(cfg: FamConfig, num_nodes: int,
     N, D, CPF = num_nodes, cfg.prefetch_degree, cfg.core_pf_degree
 
     def step(p, carry, inputs):
-        nodes, fam_busy = carry
-        addr, gap, warm, live = inputs
+        if n_win:
+            nodes, fam_busy, tele = carry
+            addr, gap, warm, live, win = inputs
+        else:
+            nodes, fam_busy = carry
+            addr, gap, warm, live = inputs
         S = addr.shape[0]
         sp = p.policy["scheduler"]
         nodes, req = _phase_a(cfg, p, nodes, addr, gap, warm, live, impls)
@@ -349,8 +372,13 @@ def _make_step(cfg: FamConfig, num_nodes: int,
                                       p_arr, p_valid, p_bytes)
         pf_fin = t.prefetch_finish[:, :N * D].reshape(S, N, D)
         cpf_fin = t.prefetch_finish[:, N * D:].reshape(S, N, CPF)
-        nodes = _phase_c(cfg, p, nodes, req, t.demand_finish, pf_fin,
-                         cpf_fin, impls)
+        nodes, lat = _phase_c(cfg, p, nodes, req, t.demand_finish, pf_fin,
+                              cpf_fin, impls)
+        if n_win:
+            tele = obs_telemetry.accumulate(tele, win, live=live, req=req,
+                                            lat=lat, nodes=nodes,
+                                            new_busy=t.new_busy)
+            return nodes, t.new_busy, tele
         return nodes, t.new_busy
 
     step.key = (cfg, num_nodes, policies)
@@ -360,15 +388,22 @@ def _make_step(cfg: FamConfig, num_nodes: int,
 def _init_carry(cfg: FamConfig, p: FamParams, num_nodes: int,
                 pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
                 policies: Optional[PolicySet] = None):
+    """(nodes, fam_busy), and the zero telemetry windows when
+    ``cfg.telemetry``."""
     nodes = _init_node(cfg, p, num_nodes, pad_sets, pad_ways, policies)
-    busy = torch.zeros((p.base_ipc.shape[0], 2), dtype=F32,
-                       device=p.base_ipc.device)
+    S, dev = p.base_ipc.shape[0], p.base_ipc.device
+    busy = torch.zeros((S, 2), dtype=F32, device=dev)
+    if cfg.telemetry:
+        return nodes, busy, obs_telemetry.init_windows(cfg.telemetry, S, dev)
     return nodes, busy
 
 
-def _metrics(nodes: NodeState, p: FamParams) -> Dict[str, torch.Tensor]:
-    """(S, N) figures of merit; ``p`` is the per-node params view."""
-    return {
+def _metrics(nodes: NodeState, p: FamParams,
+             telemetry: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """(S, N) figures of merit; ``p`` is the per-node params view. With
+    ``telemetry`` (S, n_windows, C) also the windowed counters, one
+    per-system (node-summed) matrix each, as ``"telemetry"``."""
+    out = {
         "ipc": nodes.instr / torch.clamp(nodes.cycles, min=1.0),
         "fam_latency": nodes.fam_lat_sum / torch.clamp(nodes.fam_cnt, min=1.0),
         "demand_hit_fraction": nodes.demand_hit /
@@ -380,6 +415,9 @@ def _metrics(nodes: NodeState, p: FamParams) -> Dict[str, torch.Tensor]:
         # occupancy over the EFFECTIVE geometry (padded region stays empty)
         "cache_occupancy": dc.occupancy(nodes.cache, p.num_sets, p.cache_ways),
     }
+    if telemetry is not None:
+        out["telemetry"] = telemetry
+    return out
 
 
 def _leaves(tree):
@@ -425,20 +463,21 @@ def _capture(step, p, buf, xs, run_window):
     dev = xs[0].device
     launches = fused_cache_step.launches
     key = (step.key, dev, tuple((t.shape, t.dtype) for t in _leaves(buf) + list(xs)))
-    if key not in _warmed:
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            _in_place(step)(p, buf, tuple(x[0] for x in xs))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        _warmed.add(key)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    reserved, t0 = torch.cuda.memory_reserved(dev), time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    before = fused_cache_step.launches
-    with torch.cuda.graph(graph):
-        run_window()
+    with maybe_span("compile", events=len(xs[0]), lanes=xs[0].shape[1] * xs[0].shape[2]):
+        if key not in _warmed:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _in_place(step)(p, buf, tuple(x[0] for x in xs))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            _warmed.add(key)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved, t0 = torch.cuda.memory_reserved(dev), time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = fused_cache_step.launches
+        with torch.cuda.graph(graph):
+            run_window()
     per_event = (fused_cache_step.launches - before) // len(xs[0])
     fused_cache_step.launches = launches
     last_graph.update(pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
@@ -446,12 +485,13 @@ def _capture(step, p, buf, xs, run_window):
     return graph, per_event
 
 
-def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, *,
+def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, win=None, *,
               eager: bool = False, window: int = GRAPH_EVENTS):
     """Drive ``step`` over the events: addrs (S, N, T) int32, gaps
     (S, N, T) float32 (already divided by cores per node), warm/live
-    (T, S) bool; ``p`` is the per-node view. Returns the final carry, in
-    buffers cloned from ``carry`` once.
+    (T, S) bool and, for a telemetry step, ``win`` (T, S) int32, each
+    event's telemetry window; ``p`` is the per-node view. Returns the final
+    carry, in buffers cloned from ``carry`` once.
 
     The events run in windows of ``window``, the last one padded with
     events that are neither live nor warm (exact no-ops, as
@@ -465,9 +505,12 @@ def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, *,
     T = addrs.shape[-1]
     n_windows = -(-T // window)
     pad = n_windows * window - T
-    events = (addrs.permute(2, 0, 1), gaps.permute(2, 0, 1),
-              warm.unsqueeze(-1), live.unsqueeze(-1))
+    events = [addrs.permute(2, 0, 1), gaps.permute(2, 0, 1),
+              warm.unsqueeze(-1), live.unsqueeze(-1)]
     events = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in events]
+    if win is not None:
+        # the padded events add zero rows; they land in the last window
+        events.append(torch.cat([win, win[-1:].expand((pad,) + win.shape[1:])]))
     xs = [torch.zeros_like(x[:window]) for x in events]
     buf = _clone(carry)
     step_ = _in_place(step)
@@ -496,14 +539,25 @@ def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, *,
 
 
 def _simulate(cfg, num_nodes, p, addrs, gaps, warm, live, pad_sets, pad_ways,
-              policies, eager=False):
+              policies, eager=False, t_true=None):
+    """Run the step over the events of S systems; with ``cfg.telemetry``
+    each event's window partitions the system's true length ``t_true``
+    (S,) (default: all T events)."""
     step = _make_step(cfg, num_nodes, policies)
     pn = _per_node(p)
     gaps = gaps.to(F32) / pn.cores_per_node[..., None]   # aggregate stream
     carry = _init_carry(cfg, pn, num_nodes, pad_sets, pad_ways, policies)
-    nodes, _ = run_steps(step, pn, carry, addrs.to(I32), gaps, warm, live,
-                         eager=eager)
-    return _metrics(nodes, pn)
+    win = None
+    if cfg.telemetry:
+        obs_telemetry.constants(addrs.device)            # before any capture
+        T = addrs.shape[-1]
+        if t_true is None:
+            t_true = torch.full((addrs.shape[0],), T, dtype=I32, device=addrs.device)
+        i = torch.arange(T, device=addrs.device)[:, None]
+        win = obs_telemetry.window_index(i, t_true[None, :], cfg.telemetry)
+    out = run_steps(step, pn, carry, addrs.to(I32), gaps, warm, live, win,
+                    eager=eager)
+    return _metrics(out[0], pn, out[2] if cfg.telemetry else None)
 
 
 def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
@@ -548,7 +602,7 @@ def _make_run_masked(cfg: FamConfig, num_nodes: int,
         live = i < t_true[None, :]
         warm = (i >= warm_start[None, :]) & live
         return _simulate(cfg, num_nodes, p, addrs, gaps, warm, live,
-                         pad_sets, pad_ways, policies, eager)
+                         pad_sets, pad_ways, policies, eager, t_true=t_true)
 
     return run
 

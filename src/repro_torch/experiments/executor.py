@@ -25,14 +25,23 @@ Traces come from the plan's backend (:mod:`repro_torch.traces.backend`):
 
 Either way ``ResolvedPoint.seed`` threads into ``node_seed(seed, node)``.
 
+With a :mod:`repro_torch.obs.spans` tracer installed, ``execute`` wraps
+its phases in the reference's spans: ``execute`` around the call,
+``trace_stage`` per group (on the staging thread's own lane when it
+overlaps), ``run`` per group and inside it ``device_call`` (the runner,
+which on the card holds the ``compile`` span of its graph capture and
+closes after the replays' synchronize) and ``fetch`` (the copy of the
+metrics to the host); ``RunInfo.spans`` summarizes them.
+
 Not ported here: sharding a group over several devices (``devices > 1``
-raises) and the span tracer (``RunInfo.spans`` stays None).
+raises).
 """
 from __future__ import annotations
 
 import hashlib
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -45,6 +54,7 @@ from repro_torch.device import resolve_device
 from repro_torch.experiments.plan import Plan
 from repro_torch.experiments.spec import ResolvedPoint
 from repro_torch.kernels.famsim_step import fused_cache_step
+from repro_torch.obs.spans import current_tracer, maybe_span
 from repro_torch.policies import DEFAULT_POLICY_SET
 from repro_torch.traces import generate, node_seed
 from repro_torch.traces.backend import DEFAULT_BACKEND, validate_backend
@@ -86,7 +96,9 @@ class RunInfo:
     trace_device_s: float = 0.0
     groups: List[dict] = field(default_factory=list)
     shard_check: Optional[dict] = None
-    #: span summary (the port has no span tracer yet: always None)
+    #: span summary ``{name: {count, total_s}}`` from the installed
+    #: :mod:`repro_torch.obs.spans` tracer, covering this execute call
+    #: only; None when no tracer is installed (the default)
     spans: Optional[dict] = None
 
     def us_per_call(self) -> float:
@@ -138,6 +150,9 @@ class ExperimentResult:
         self._by_point = {p: i for i, p in enumerate(self.points)}
 
     def metrics_for(self, pt: ResolvedPoint) -> Dict[str, np.ndarray]:
+        """The point's metrics: (N,) per-node arrays and, when its config
+        has telemetry on, its ``(n_windows, N_COUNTERS)`` ``"telemetry"``
+        matrix."""
         return self.metrics[self._by_point[pt]]
 
     def t_pad_for(self, pt: ResolvedPoint) -> int:
@@ -313,8 +328,12 @@ def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
     famsim.last_graph.clear()
     launches = fused_cache_step.launches
     t0 = time.perf_counter()
-    out = run(p, addrs, gaps, t_true, warm_start)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    # on the card the runner synchronizes after its replays, so the span
+    # closes on the device's work, not on its launches
+    with maybe_span("device_call"):
+        out = run(p, addrs, gaps, t_true, warm_start)
+    with maybe_span("fetch"):
+        out = {k: v.cpu().numpy() for k, v in out.items()}
     wall = time.perf_counter() - t0
     capture_s = famsim.last_graph.get("capture_s")
     return out, {"captured": capture_s is not None,
@@ -371,6 +390,8 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
     mode = _mode(dev)
     info = RunInfo(planned_groups=plan.num_groups, devices=D,
                    trace_backend=backend)
+    tracer = current_tracer()
+    span_mark = tracer.mark() if tracer is not None else 0
     exec_idxs = [_pad_systems(g.indices, g.s_pad) for g in plan.groups]
 
     keys = []
@@ -382,13 +403,20 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
                               policies=rep.policy_set()))
 
     def staged_prepare(gi_):
-        return _prepare(plan.points, exec_idxs[gi_], plan.groups[gi_].t_pad,
-                        warmup_frac, backend)
+        with maybe_span("trace_stage", group=gi_):
+            return _prepare(plan.points, exec_idxs[gi_], plan.groups[gi_].t_pad,
+                            warmup_frac, backend)
 
     results: List[Optional[Dict[str, np.ndarray]]] = [None] * plan.num_points
     pool = ThreadPoolExecutor(max_workers=1) if overlap and \
         backend == "numpy" and len(plan.groups) > 1 else None
     group0 = None
+    # the whole-execute span closes before the cross-check, as the
+    # reference's does
+    sentry = ExitStack()
+    sentry.enter_context(maybe_span("execute", groups=plan.num_groups,
+                                    points=plan.num_points, backend=backend,
+                                    devices=D))
     try:
         pending: Optional[Future] = None
         if pool is not None:
@@ -405,7 +433,9 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             rep = plan.points[g.indices[0]]
             run = famsim._make_run_masked(rep.cfg, N, g.pad_sets, g.pad_ways,
                                           policies=rep.policy_set())
-            out, acct = _run_group(data, run, dev, t_pad, backend)
+            with maybe_span("run", group=gi, key_digest=_key_digest(keys[gi]),
+                            S=S_exec, N=N, T_pad=t_pad):
+                out, acct = _run_group(data, run, dev, t_pad, backend)
             if gi == 0 and cross_check_shard:
                 group0 = (data, out)
 
@@ -434,6 +464,7 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             for j, i in enumerate(g.indices):
                 results[i] = {k: v[j] for k, v in out.items()}
     finally:
+        sentry.close()
         if pool is not None:
             pool.shutdown(wait=False)
 
@@ -447,6 +478,9 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
     if cross_check_shard and plan.groups:
         info.shard_check = _eager_cross_check(plan, *group0, exec_idxs[0],
                                               dev, backend)
+    if tracer is not None:
+        # summarized after the cross-check, so its spans are included
+        info.spans = tracer.summary(since=span_mark)
     t_pads = [0] * plan.num_points
     for g in plan.groups:
         for i in g.indices:

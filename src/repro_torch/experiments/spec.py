@@ -299,4 +299,7 @@ class Experiment:
         :func:`~repro_torch.experiments.executor.execute` (``device``
         among them, ``"cuda"`` by default)."""
         from repro_torch.experiments.executor import execute
-        return execute(self.plan(**(plan_kw or {})), **execute_kw)
+        from repro_torch.obs.spans import maybe_span
+        with maybe_span("plan", experiment=self.name):
+            plan = self.plan(**(plan_kw or {}))
+        return execute(plan, **execute_kw)
