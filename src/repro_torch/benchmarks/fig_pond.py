@@ -101,7 +101,9 @@ def run_result(quick: bool = True, trace_backend: str = "device",
     with obs_tracer(NAME, telemetry, out):
         result = low.experiment.run(assert_compiles=True, device=device)
     info = result.info
-    assert info.compiles <= 1, info.groups
+    # one group: one runner-cache lookup, a capture only on a miss
+    assert info.exec_cache_hits + info.exec_cache_misses == 1 and \
+        info.compiles <= info.exec_cache_misses, info.groups
     summaries, records = fleet_report(result, low)
     by_fleet = {}
     for r in records:

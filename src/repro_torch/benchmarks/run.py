@@ -1,7 +1,7 @@
 """Run the port's paper-figure drivers and print ``name,us_per_call,derived``.
 
 Counterpart of the reference's ``benchmarks/run.py`` (fig08, fig10, fig12,
-fig14, fig15, fig16 and the ``bench`` and ``pond`` subcommands)::
+fig14, fig15, fig16 and the ``bench``, ``pond`` and ``search`` subcommands)::
 
     python -m repro_torch.benchmarks.run                       # all, quick, on the card
     python -m repro_torch.benchmarks.run fig10 fig12 fig15
@@ -27,10 +27,13 @@ with ``python -m repro_torch.obs report``) and ``DIR/trace/<figure>.json``::
 
 ``bench`` hands the remaining arguments to the throughput benchmark
 (:mod:`repro_torch.benchmarks.bench_famsim`), ``pond`` to the multi-tenant
-fleet scenario (:mod:`repro_torch.benchmarks.fig_pond`)::
+fleet scenario (:mod:`repro_torch.benchmarks.fig_pond`), ``search`` to the
+design-space search over the fig14 mixes
+(:mod:`repro_torch.benchmarks.fig_search`)::
 
     python -m repro_torch.benchmarks.run bench --quick
     python -m repro_torch.benchmarks.run pond             # quick fleets, on the card
+    python -m repro_torch.benchmarks.run search --out /tmp/search
 
 ``--device`` defaults to ``cuda`` (the run fails without a card rather
 than fall back to the CPU). JSON rows are written only under ``--out``.
@@ -56,8 +59,8 @@ def _figures():
 
 
 def main(argv=None):
-    """Run the figures (None), or the ``bench`` / ``pond`` subcommand
-    (returning its rows)."""
+    """Run the figures (None), or the ``bench`` / ``pond`` / ``search``
+    subcommand (returning its rows)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "bench":
         # the throughput benchmark owns its whole argument tail
@@ -67,6 +70,10 @@ def main(argv=None):
         # so does the multi-tenant fleet scenario
         from repro_torch.benchmarks import fig_pond
         return fig_pond.main(argv[1:])
+    if argv and argv[0] == "search":
+        # and the design-space search
+        from repro_torch.benchmarks import fig_search
+        return fig_search.main(argv[1:])
     ap = argparse.ArgumentParser(
         description="Run the port's paper-figure drivers through "
                     "repro_torch.experiments")

@@ -17,12 +17,14 @@ and a Python loop over events takes the place of ``lax.scan``. Each step:
   C. (per node) latency and IPC accounting, prefetch-queue fills,
      adaptation.
 
-:func:`run_steps` drives the step over the events in windows of
+:class:`GroupRunner` drives the step over the events in windows of
 :data:`GRAPH_EVENTS`, each step updating fixed carry buffers in place. On
 CUDA tensors one window of in-place steps is captured once in a CUDA graph
 and replayed for every window, so the host issues one graph launch per
 window instead of some 700 kernels per event; on CPU tensors the same
-windows run step by step.
+windows run step by step. A ``GroupRunner`` keeps its buffers and graph,
+so the executor caches one per runner key and refills it for every group
+of that key.
 
 ``FamConfig`` gives the shapes (the padded cache allocation, table sizes,
 degrees) and the static ``telemetry`` tag (:mod:`repro_torch.obs`: windowed
@@ -485,43 +487,35 @@ def _capture(step, p, buf, xs, run_window):
     return graph, per_event
 
 
-def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, win=None, *,
-              eager: bool = False, window: int = GRAPH_EVENTS):
-    """Drive ``step`` over the events: addrs (S, N, T) int32, gaps
-    (S, N, T) float32 (already divided by cores per node), warm/live
-    (T, S) bool and, for a telemetry step, ``win`` (T, S) int32, each
-    event's telemetry window; ``p`` is the per-node view. Returns the final
-    carry, in buffers cloned from ``carry`` once.
-
-    The events run in windows of ``window``, the last one padded with
-    events that are neither live nor warm (exact no-ops, as
-    :func:`_make_run_masked` relies on), each event one in-place step
-    (:func:`_in_place`). On CUDA tensors one window is captured in a CUDA
-    graph and replayed once per window, each window's events copied into
-    the graph's input buffers first; a failed capture or replay raises.
-    ``fused_cache_step.launches`` then counts the kernel launches of the
-    live events. ``eager=True`` runs the windows step by step on the card
-    instead, for comparison; on CPU tensors they always run so."""
-    T = addrs.shape[-1]
-    n_windows = -(-T // window)
-    pad = n_windows * window - T
+def _window_events(addrs, gaps, warm, live, win, window):
+    """The per-event input streams, event-major and padded to whole windows
+    with events that are neither live nor warm (exact no-ops); the window
+    index, when given, is padded with its last value."""
+    pad = -addrs.shape[-1] % window
     events = [addrs.permute(2, 0, 1), gaps.permute(2, 0, 1),
               warm.unsqueeze(-1), live.unsqueeze(-1)]
     events = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in events]
     if win is not None:
-        # the padded events add zero rows; they land in the last window
         events.append(torch.cat([win, win[-1:].expand((pad,) + win.shape[1:])]))
-    xs = [torch.zeros_like(x[:window]) for x in events]
-    buf = _clone(carry)
+    return events
+
+
+def _window_fn(step, p, buf, xs):
+    """One window of in-place steps on ``buf``, inputs read from ``xs``."""
     step_ = _in_place(step)
 
     def run_window():
-        for i in range(window):
+        for i in range(len(xs[0])):
             step_(p, buf, tuple(x[i] for x in xs))
 
-    graph = None
-    if addrs.device.type == "cuda" and not eager:
-        graph, per_event = _capture(step, p, buf, xs, run_window)
+    return run_window
+
+
+def _drive(run_window, graph, per_event, xs, events, T):
+    """Copy each window's events into ``xs`` and run it: a replay of
+    ``graph``, or ``run_window`` step by step when there is none."""
+    window = len(xs[0])
+    n_windows = len(events[0]) // window
     t0 = time.perf_counter()
     for w in range(n_windows):
         for x, full in zip(xs, events):
@@ -531,78 +525,152 @@ def run_steps(step, p: FamParams, carry, addrs, gaps, warm, live, win=None, *,
         else:
             graph.replay()
     if graph is not None:
-        torch.cuda.synchronize(addrs.device)
+        torch.cuda.synchronize(xs[0].device)
         fused_cache_step.launches += per_event * T
-        last_graph.update(events=window, replays=n_windows, padded=pad,
+        last_graph.update(events=window, replays=n_windows,
+                          padded=n_windows * window - T,
                           replay_s=time.perf_counter() - t0)
-    return buf
 
 
-def _simulate(cfg, num_nodes, p, addrs, gaps, warm, live, pad_sets, pad_ways,
-              policies, eager=False, t_true=None):
-    """Run the step over the events of S systems; with ``cfg.telemetry``
-    each event's window partitions the system's true length ``t_true``
-    (S,) (default: all T events)."""
-    step = _make_step(cfg, num_nodes, policies)
-    pn = _per_node(p)
-    gaps = gaps.to(F32) / pn.cores_per_node[..., None]   # aggregate stream
-    carry = _init_carry(cfg, pn, num_nodes, pad_sets, pad_ways, policies)
-    win = None
-    if cfg.telemetry:
-        obs_telemetry.constants(addrs.device)            # before any capture
-        T = addrs.shape[-1]
-        if t_true is None:
-            t_true = torch.full((addrs.shape[0],), T, dtype=I32, device=addrs.device)
-        i = torch.arange(T, device=addrs.device)[:, None]
-        win = obs_telemetry.window_index(i, t_true[None, :], cfg.telemetry)
-    out = run_steps(step, pn, carry, addrs.to(I32), gaps, warm, live, win,
-                    eager=eager)
-    return _metrics(out[0], pn, out[2] if cfg.telemetry else None)
+def _copy_into(dst, src):
+    """Copy every tensor of ``src`` into the tensor at the same place of
+    ``dst`` (trees of NamedTuples, tuples and dicts of equal structure),
+    in place."""
+    if isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"buffer {tuple(dst.shape)} {dst.dtype} cannot take "
+                             f"{tuple(src.shape)} {src.dtype}")
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"buffer keys {sorted(dst)} != {sorted(src)}")
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        for d, s_ in zip(dst, src, strict=True):
+            _copy_into(d, s_)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    nodes = tree.values() if isinstance(tree, dict) else tree
+    return sum(_tree_bytes(n) for n in nodes)
+
+
+class GroupRunner:
+    """The dynamic-T runner of one compile group, which owns every tensor
+    its steps read or write, so one object serves every group of its
+    runner key (:mod:`repro_torch.experiments`' runner cache).
+
+    ``runner(params (S,), addrs (S, N, T_pad), gaps, t_true (S,),
+    warm_start (S,))`` simulates the first ``t_true`` events of each
+    system; the padded tail steps run with ``live=False`` and are exact
+    no-ops, so every metric is bit-identical to an unpadded run of length
+    ``t_true``. ``warm_start`` is the first accumulated event,
+    ``int(t_true * warmup_frac)`` computed on the host.
+
+    The first call clones the params and the initial carry into buffers
+    the runner keeps, with the window input buffers, and on CUDA tensors
+    captures one window in a CUDA graph over them (unless ``eager``). Every
+    call, the first included, copies its params into the param buffers
+    (whose per-node views the steps read), its initial carry (which
+    depends on the params: the adaptation and prefetch states) into the
+    carry buffers, and each window's events into the input buffers: the
+    graph is replayed on the new group's values, and on the CPU the same
+    buffers run step by step. Everything else the steps see is computed
+    from those buffers (:meth:`drive` runs the events from a given carry).
+    A call whose shapes differ from the first raises. ``eager=True`` runs the steps on the card without a graph, for
+    comparison.
+    """
+
+    def __init__(self, cfg: FamConfig, num_nodes: int,
+                 pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
+                 policies: Optional[PolicySet] = None, *, eager: bool = False):
+        self.cfg, self.num_nodes = cfg, num_nodes
+        self.pad_sets, self.pad_ways, self.policies = pad_sets, pad_ways, policies
+        self.eager, self.window = eager, GRAPH_EVENTS
+        self.step = _make_step(cfg, num_nodes, policies)
+        self.shape = None
+        self.p = self.pn = self.buf = self.xs = None
+        self.run_window = self.graph = self.per_event = None
+        #: the graph's private memory pool, from the capture's reserved bytes
+        self.pool_bytes = 0
+        #: calls so far (a cached runner's calls after its first are cache hits)
+        self.calls = 0
+
+    def nbytes(self) -> int:
+        """Device bytes the runner keeps alive: its buffers and graph pool."""
+        if self.buf is None:
+            return 0
+        return (_tree_bytes(self.p) + _tree_bytes(self.buf) +
+                _tree_bytes(self.xs) + self.pool_bytes)
+
+    def __call__(self, p: FamParams, addrs, gaps, t_true, warm_start):
+        N, T_pad = addrs.shape[1:]
+        cfg, dev = self.cfg, addrs.device
+        pn = _per_node(p)
+        i = torch.arange(T_pad, device=dev)[:, None]
+        live = i < t_true[None, :]
+        warm = (i >= warm_start[None, :]) & live
+        gaps = gaps.to(F32) / pn.cores_per_node[..., None]   # aggregate stream
+        carry = _init_carry(cfg, pn, N, self.pad_sets, self.pad_ways, self.policies)
+        win = None
+        if cfg.telemetry:
+            obs_telemetry.constants(dev)                     # before any capture
+            win = obs_telemetry.window_index(i, t_true[None, :], cfg.telemetry)
+        buf = self.drive(p, carry, addrs.to(I32), gaps, warm, live, win)
+        out = _metrics(buf[0], self.pn, buf[2] if cfg.telemetry else None)
+        # the buffers are overwritten by the next call
+        return {k: v.clone() for k, v in out.items()}
+
+    def drive(self, p: FamParams, carry, addrs, gaps, warm, live, win=None):
+        """Run the events from ``carry``: addrs (S, N, T) int32, gaps
+        (S, N, T) float32 (already divided by cores per node), warm/live
+        (T, S) bool and, for a telemetry step, ``win`` (T, S) int32, each
+        event's telemetry window. Copies ``p`` (stacked, not per node) and
+        ``carry`` into the runner's buffers and returns the carry buffers,
+        which the next call overwrites."""
+        if addrs.shape[1] != self.num_nodes:
+            raise ValueError(f"traces have {addrs.shape[1]} nodes, runner built for "
+                             f"{self.num_nodes}")
+        if self.shape is None:
+            self.shape = addrs.shape
+            self.p = tree_map(torch.clone, p)
+            self.pn = _per_node(self.p)
+        elif addrs.shape != self.shape:
+            raise ValueError(f"traces {tuple(addrs.shape)}, runner built for "
+                             f"{tuple(self.shape)}")
+        else:
+            _copy_into(self.p, p)
+        self.calls += 1
+        events = _window_events(addrs, gaps, warm, live, win, self.window)
+        if self.buf is None:
+            self.buf = _clone(carry)
+            self.xs = [torch.zeros_like(x[:self.window]) for x in events]
+            self.run_window = _window_fn(self.step, self.pn, self.buf, self.xs)
+        else:
+            _copy_into(self.buf, carry)
+        if addrs.device.type == "cuda" and not self.eager and self.graph is None:
+            self.graph, self.per_event = _capture(self.step, self.pn, self.buf, self.xs,
+                                                  self.run_window)
+            self.pool_bytes = int(last_graph["pool_bytes"])
+        _drive(self.run_window, None if self.eager else self.graph, self.per_event,
+               self.xs, events, addrs.shape[-1])
+        return self.buf
 
 
 def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
               pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
               policies: Optional[PolicySet] = None, eager: bool = False):
     """Batched fixed-T runner: run(params (S,), addrs (S, N, T), gaps
-    (S, N, T)) -> metrics dict of (S, N) tensors. ``eager``: see
-    :func:`run_steps`."""
+    (S, N, T)) -> metrics dict of (S, N) tensors: a fresh
+    :class:`GroupRunner` over all T events (``eager``: see there)."""
     def run(p: FamParams, addrs, gaps):
-        S, N, T = addrs.shape
-        if N != num_nodes:
-            raise ValueError(f"traces have {N} nodes, runner built for {num_nodes}")
-        dev = addrs.device
-        warm = (torch.arange(T, device=dev) >= int(T * warmup_frac))
-        warm = warm[:, None].expand(T, S)
-        live = torch.ones((T, S), dtype=torch.bool, device=dev)
-        return _simulate(cfg, num_nodes, p, addrs, gaps, warm, live,
-                         pad_sets, pad_ways, policies, eager)
-
-    return run
-
-
-def _make_run_masked(cfg: FamConfig, num_nodes: int,
-                     pad_sets: Optional[int] = None,
-                     pad_ways: Optional[int] = None,
-                     policies: Optional[PolicySet] = None,
-                     eager: bool = False):
-    """Dynamic-T runner for padded traces: run(params (S,), addrs
-    (S, N, T_pad), gaps, t_true (S,), warm_start (S,)) simulates only the
-    first ``t_true`` events of each system; the padded tail steps run with
-    ``live=False`` and are exact no-ops, so every metric is bit-identical
-    to an unpadded run of length ``t_true``. ``warm_start`` is the first
-    accumulated event, ``int(t_true * warmup_frac)`` computed on the host.
-    ``eager``: see :func:`run_steps`. One call is one compile group of
-    :mod:`repro_torch.experiments` (one CUDA graph capture on the card).
-    """
-    def run(p: FamParams, addrs, gaps, t_true, warm_start):
-        S, N, T_pad = addrs.shape
-        if N != num_nodes:
-            raise ValueError(f"traces have {N} nodes, runner built for {num_nodes}")
-        i = torch.arange(T_pad, device=addrs.device)[:, None]
-        live = i < t_true[None, :]
-        warm = (i >= warm_start[None, :]) & live
-        return _simulate(cfg, num_nodes, p, addrs, gaps, warm, live,
-                         pad_sets, pad_ways, policies, eager, t_true=t_true)
+        S, T = addrs.shape[0], addrs.shape[-1]
+        full = lambda v: torch.full((S,), v, dtype=I32, device=addrs.device)
+        return GroupRunner(cfg, num_nodes, pad_sets, pad_ways, policies, eager=eager)(
+            p, addrs, gaps, full(T), full(int(T * warmup_frac)))
 
     return run
 

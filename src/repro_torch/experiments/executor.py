@@ -1,17 +1,25 @@
 """Plan executor: one batched simulator call per compile group.
 
 Counterpart of ``repro.experiments.executor``. One
-:class:`~repro_torch.experiments.plan.CompileGroup` is one call of
-:func:`repro_torch.core.famsim._make_run_masked`'s runner over the group's
-systems: the cache allocated at the group's padded ``(pad_sets,
-pad_ways)`` geometry with each system's own geometry masking it down
-(bit-exact), the system axis padded to the group's canonical ``s_pad``
-width by repeating the last member (inert: systems share no state, and the
-padded systems' results are dropped), every system run at the group's
-``t_pad`` with its padded tail masked out. On the card the runner captures
-one window of steps in a CUDA graph and replays it over the events: that
-capture stands in for the reference's AOT-compiled executable, and its
-seconds are the group's compile seconds.
+:class:`~repro_torch.experiments.plan.CompileGroup` is one call of a
+:class:`repro_torch.core.famsim.GroupRunner` over the group's systems: the
+cache allocated at the group's padded ``(pad_sets, pad_ways)`` geometry
+with each system's own geometry masking it down (bit-exact), the system
+axis padded to the group's canonical ``s_pad`` width by repeating the last
+member (inert: systems share no state, and the padded systems' results are
+dropped), every system run at the group's ``t_pad`` with its padded tail
+masked out. On the card the runner captures one window of steps in a CUDA
+graph and replays it over the events: that capture stands in for the
+reference's AOT-compiled executable, and its seconds are the group's
+compile seconds.
+
+Runners are cached for the life of the process by the group's runner key
+(:func:`_exec_key`) and device, as the reference caches its executables:
+a later group with an equal key, in the same ``execute`` or a later one,
+refills the cached runner's buffers and replays its graph, with no
+capture. ``RunInfo`` counts the lookups (``exec_cache_hits`` /
+``exec_cache_misses``), the groups whose runner predated the call
+(``groups_reused``) and the captures (``compiles``).
 
 Traces come from the plan's backend (:mod:`repro_torch.traces.backend`):
 
@@ -70,15 +78,20 @@ def _key_digest(key: Tuple) -> str:
 class RunInfo:
     """Wall-clock / capture accounting for one executed plan."""
 
-    #: CUDA graph captures of group runners in this execute (one per group
-    #: run on the card; a graph is captured anew on every execute, and
-    #: nothing is captured on the CPU)
+    #: CUDA graph captures of group runners in this execute: one per runner
+    #: cache miss on the card, none on a hit, none on the CPU
     compiles: int = 0
     planned_groups: int = 0        # deterministic, unlike ``compiles``
     #: the reference's count of XLA compiles; the port has none (-1)
     xla_compiles: int = -1
     compile_s: float = 0.0         # seconds of those captures
     run_s: float = 0.0             # runner wall, captures and trace generation excluded
+    #: runner-cache lookups of this execute, one per group: was the
+    #: group's runner already cached (hit, its graph replayed) or new (miss)
+    exec_cache_hits: int = 0
+    exec_cache_misses: int = 0
+    #: groups of this plan whose runner was cached before this execute
+    groups_reused: int = 0
     #: wall of the whole execute (staging, generation, captures, runs;
     #: the cross-check excluded)
     wall_s: float = 0.0
@@ -111,6 +124,9 @@ class RunInfo:
              "planned_groups": self.planned_groups,
              "compile_s": round(self.compile_s, 3),
              "run_s": round(self.run_s, 3),
+             "exec_cache_hits": self.exec_cache_hits,
+             "exec_cache_misses": self.exec_cache_misses,
+             "groups_reused": self.groups_reused,
              "wall_s": round(self.wall_s, 3),
              "systems": self.systems, "events": self.events,
              "padded_events": self.padded_events,
@@ -268,37 +284,57 @@ def _mode(dev: torch.device) -> str:
     return "graph" if dev.type == "cuda" else "steps"
 
 
-def _exec_key(cfg, S: int, N: int, t_pad: int, mode, *,
+#: the key's execution mode: one device, the group's systems batched on the
+#: leading axis (the reference's name; its other mode, ``("shard", D)``,
+#: is not ported)
+_BATCHED = "vmap"
+
+#: ``(runner key, device) -> GroupRunner``, for the life of the process
+_EXEC_CACHE: Dict[Tuple, famsim.GroupRunner] = {}
+
+
+def _exec_key(cfg, S: int, N: int, t_pad: int, *,
               pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
               trace_backend: str = "numpy", policies=None) -> Tuple:
     """The runner key one group resolves to: a pure function of the plan
-    (geometry-free shape + padded allocation + widths + policy tags).
-    Groups with equal keys run one program; each execute captures its
-    graph anew, so nothing is cached under it."""
+    (geometry-free shape + padded allocation + widths + policy tags), the
+    same on every device. Groups with equal keys run one program, so
+    :func:`execute` caches one runner (and on the card its captured graph)
+    per key and device, and every later group with that key replays it."""
     policies = policies or DEFAULT_POLICY_SET
     return (cfg.geometry_free_shape(), pad_sets or cfg.num_sets,
-            pad_ways or cfg.cache_ways, S, N, t_pad, mode,
+            pad_ways or cfg.cache_ways, S, N, t_pad, _BATCHED,
             trace_backend == "device", policies.compile_tags())
 
 
 def group_cache_keys(plan: Plan, *, devices: Optional[int] = None,
-                     trace_backend: Optional[str] = None,
-                     device="cuda") -> Tuple[Tuple, ...]:
+                     trace_backend: Optional[str] = None) -> Tuple[Tuple, ...]:
     """The runner key each group of ``plan`` would resolve to under
     :func:`execute`, without running anything: two groups with equal keys
-    run one program."""
+    share one cached runner, so a caller batching repeated sweeps
+    (:mod:`repro_torch.search`) can tell beforehand which groups replay a
+    cached graph and which capture one."""
     backend = validate_backend(trace_backend or plan.trace_backend)
     _devices(devices)
-    mode = _mode(resolve_device(device))
     keys = []
     for g in plan.groups:
         rep = plan.points[g.indices[0]]
         keys.append(_exec_key(
             rep.cfg, len(_pad_systems(g.indices, g.s_pad)),
-            g.key.num_nodes, g.t_pad, mode, pad_sets=g.pad_sets,
+            g.key.num_nodes, g.t_pad, pad_sets=g.pad_sets,
             pad_ways=g.pad_ways, trace_backend=backend,
             policies=rep.policy_set()))
     return tuple(keys)
+
+
+def _clear_exec_cache() -> None:
+    """Drop every cached runner (and its graph and buffers)."""
+    _EXEC_CACHE.clear()
+
+
+def exec_cache_bytes() -> int:
+    """Device bytes the cached runners keep alive: buffers and graph pools."""
+    return sum(r.nbytes() for r in _EXEC_CACHE.values())
 
 
 def _sync(dev: torch.device):
@@ -375,32 +411,28 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
     overlap: overlap host trace generation for group i+1 with the
         simulation of group i (numpy backend only).
     cross_check_shard: re-run the first group through the port's other
-        execution path — the eager steps (``run_steps(eager=True)``) where
+        execution path — the eager steps (``GroupRunner(eager=True)``) where
         the primary path replays a CUDA graph — and record whether the
         metrics are bit-exact in ``info.shard_check``.
     trace_backend: override ``plan.trace_backend`` ("device"/"numpy").
-    assert_compiles: assert that every group ran through exactly one
-        fresh graph capture on the card (``compiles == planned_groups``),
-        and none on the CPU.
+    assert_compiles: assert the capture accounting: one lookup of the
+        runner cache a group (``exec_cache_hits + exec_cache_misses ==
+        planned_groups``), and one capture a miss on the card
+        (``compiles == exec_cache_misses``), none on the CPU.
     """
     t_start = time.perf_counter()
     backend = validate_backend(trace_backend or plan.trace_backend)
     D = _devices(devices)
     dev = resolve_device(device)
-    mode = _mode(dev)
     info = RunInfo(planned_groups=plan.num_groups, devices=D,
                    trace_backend=backend)
     tracer = current_tracer()
     span_mark = tracer.mark() if tracer is not None else 0
     exec_idxs = [_pad_systems(g.indices, g.s_pad) for g in plan.groups]
 
-    keys = []
-    for gi, g in enumerate(plan.groups):
-        rep = plan.points[g.indices[0]]
-        keys.append(_exec_key(rep.cfg, len(exec_idxs[gi]), g.key.num_nodes,
-                              g.t_pad, mode, pad_sets=g.pad_sets,
-                              pad_ways=g.pad_ways, trace_backend=backend,
-                              policies=rep.policy_set()))
+    keys = group_cache_keys(plan, trace_backend=backend)
+    # the groups whose runner an earlier execute left in the cache
+    info.groups_reused = sum((k, dev) in _EXEC_CACHE for k in keys)
 
     def staged_prepare(gi_):
         with maybe_span("trace_stage", group=gi_):
@@ -431,11 +463,18 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             S_exec = len(exec_idxs[gi])
             N, t_pad = g.key.num_nodes, g.t_pad
             rep = plan.points[g.indices[0]]
-            run = famsim._make_run_masked(rep.cfg, N, g.pad_sets, g.pad_ways,
-                                          policies=rep.policy_set())
+            run = _EXEC_CACHE.get((keys[gi], dev))
+            hit = run is not None
+            info.exec_cache_hits += hit
+            info.exec_cache_misses += not hit
+            if not hit:
+                run = famsim.GroupRunner(rep.cfg, N, g.pad_sets, g.pad_ways,
+                                         policies=rep.policy_set())
             with maybe_span("run", group=gi, key_digest=_key_digest(keys[gi]),
                             S=S_exec, N=N, T_pad=t_pad):
                 out, acct = _run_group(data, run, dev, t_pad, backend)
+            # cached once it has run, so a failed first run leaves nothing
+            _EXEC_CACHE[(keys[gi], dev)] = run
             if gi == 0 and cross_check_shard:
                 group0 = (data, out)
 
@@ -459,6 +498,7 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
                 "run_s": round(acct["run_s"], 3),
                 "trace_device_s": round(acct["trace_device_s"], 4),
                 "fresh_compile": acct["captured"],
+                "exec_cache_hit": hit,
                 "launches": acct["launches"],
                 "key_digest": _key_digest(keys[gi])})
             for j, i in enumerate(g.indices):
@@ -470,10 +510,13 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
 
     info.wall_s = time.perf_counter() - t_start
     if assert_compiles:
-        want = plan.num_groups if dev.type == "cuda" else 0
-        assert info.compiles == want, (
-            f"{info.compiles} graph capture(s) for {plan.num_groups} planned "
-            f"group(s) on {dev}; expected {want}", info.groups)
+        want = info.exec_cache_misses if dev.type == "cuda" else 0
+        assert info.compiles == want and info.exec_cache_hits + \
+            info.exec_cache_misses == plan.num_groups, (
+                f"{info.compiles} graph capture(s), {info.exec_cache_hits} runner "
+                f"cache hit(s) and {info.exec_cache_misses} miss(es) for "
+                f"{plan.num_groups} planned group(s) on {dev}; expected {want} "
+                "capture(s) and one lookup a group", info.groups)
 
     if cross_check_shard and plan.groups:
         info.shard_check = _eager_cross_check(plan, *group0, exec_idxs[0],
@@ -493,14 +536,13 @@ def _eager_cross_check(plan: Plan, data: _GroupData,
                        primary_out: Dict[str, np.ndarray],
                        idxs: Sequence[int], dev: torch.device,
                        trace_backend: str) -> dict:
-    """Re-run the first group step by step from the host
-    (``run_steps(eager=True)``) and compare it with the primary run, bit
-    for bit."""
+    """Re-run the first group step by step from the host with a fresh
+    ``GroupRunner(eager=True)`` (never cached) and compare it with the
+    primary run, bit for bit."""
     g = plan.groups[0]
     rep = plan.points[g.indices[0]]
-    run = famsim._make_run_masked(rep.cfg, g.key.num_nodes, g.pad_sets,
-                                  g.pad_ways, policies=rep.policy_set(),
-                                  eager=True)
+    run = famsim.GroupRunner(rep.cfg, g.key.num_nodes, g.pad_sets, g.pad_ways,
+                             policies=rep.policy_set(), eager=True)
     alt, _ = _run_group(data, run, dev, g.t_pad, trace_backend)
     bit_exact = all(np.array_equal(primary_out[k], alt[k])
                     for k in primary_out)

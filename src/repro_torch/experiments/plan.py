@@ -16,7 +16,7 @@ XLA executable. Group *membership* keys on
 * ``T_bucket`` — true lengths round UP to a geometric grid (1024, 1536,
   2048, 3072, ...) so mixed-T experiments share a group; the group then
   runs at ``t_pad``, the max true T of its members, and the runner masks
-  any padded tail out exactly (``famsim._make_run_masked``).
+  any padded tail out exactly (``famsim.GroupRunner``).
 
 Each group's final ``CompileKey.static_shape`` re-adds the PADDED geometry
 ``(pad_sets, pad_ways)``: the cache state is allocated at the group's

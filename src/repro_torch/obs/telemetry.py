@@ -14,10 +14,10 @@ of this and launches exactly the kernels it launched before; with
 telemetry on, accumulation only reads the step's signals, so every other
 metric stays bit-identical.
 
-On the card the accumulator is one of the fixed carry buffers of
-``famsim.run_steps``' CUDA graph: :func:`accumulate` adds each step's
-row in place with one ``scatter_add_``, and the window index arrives as
-one more per-event input stream. The constant tensors it reads
+On the card the accumulator is one of the fixed carry buffers of the
+simulator's CUDA graph (``famsim.GroupRunner``): :func:`accumulate` adds
+each step's row in place with one ``scatter_add_``, and the window index
+arrives as one more per-event input stream. The constant tensors it reads
 (:func:`constants`) are made once per device before any capture.
 
 Window semantics (as the reference's):

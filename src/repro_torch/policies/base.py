@@ -10,7 +10,7 @@ tensor}}``), one value per simulated system.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,11 @@ def get_policy(kind: str, name: str):
 
 def available(kind: str) -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY[kind]))
+
+
+#: ``(kind, policy name) -> sorted param names``: ``params_of`` keys do not
+#: depend on the config, so each policy is probed once
+_SCHEMA_CACHE: Dict[Tuple[str, str], Tuple[str, ...]] = {}
 
 
 class ResolvedPolicies(NamedTuple):
@@ -110,23 +115,58 @@ class PolicySet:
                              f"{sorted(ov)} (kinds: {POLICY_KINDS})")
         return out
 
+    def param_schema(self, kind: str) -> Tuple[str, ...]:
+        """The numeric-param names of ``kind``'s chosen policy (the keys of
+        its ``params_of``), cached per policy."""
+        if kind not in POLICY_KINDS:
+            raise ValueError(f"unknown policy kind {kind!r} "
+                             f"(kinds: {POLICY_KINDS})")
+        impl = self.impl(kind)
+        cached = _SCHEMA_CACHE.get((kind, impl.name))
+        if cached is None:
+            from repro_torch.configs.base import FamConfig
+            cached = tuple(sorted(impl.params_of(FamConfig())))
+            _SCHEMA_CACHE[(kind, impl.name)] = cached
+        return cached
+
     def override(self, kind: str, **values) -> "PolicySet":
         """A copy with ``values`` merged into ``kind``'s param overrides;
-        names are checked against the chosen policy's schema here."""
+        names are checked against :meth:`param_schema` here."""
         if kind not in POLICY_KINDS:
             raise ValueError(f"unknown policy kind {kind!r}")
-        from repro_torch.configs.base import FamConfig
-        schema = set(self.impl(kind).params_of(FamConfig()))
-        bad = sorted(set(values) - schema)
+        schema = self.param_schema(kind)
+        bad = sorted(set(values) - set(schema))
         if bad:
             raise ValueError(
                 f"{kind} policy {getattr(self, kind)!r} has no numeric "
-                f"param(s) {bad}; valid params: {sorted(schema)}")
+                f"param(s) {bad}; valid params: {list(schema)}")
         merged = dict((k, dict(v)) for k, v in self.overrides)
         merged.setdefault(kind, {}).update(values)
         canon = tuple(sorted(
             (k, tuple(sorted(v.items()))) for k, v in merged.items() if v))
         return replace(self, overrides=canon)
+
+    def as_dict(self) -> Dict[str, Any]:
+        """JSON-able form: the four policy names and the overrides as
+        nested dicts (the search's candidate and ``best.json`` format);
+        :meth:`from_dict` inverts it."""
+        return {
+            **{k: getattr(self, k) for k in POLICY_KINDS},
+            "overrides": {k: dict(v) for k, v in self.overrides},
+        }
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "PolicySet":
+        """Inverse of :meth:`as_dict`; the overrides are validated again
+        against the chosen policies' schemas."""
+        unknown = set(d) - set(POLICY_KINDS) - {"overrides"}
+        if unknown:
+            raise ValueError(f"PolicySet.from_dict: unknown keys "
+                             f"{sorted(unknown)}")
+        ps = cls(**{k: str(d[k]) for k in POLICY_KINDS if k in d})
+        for kind, params in dict(d.get("overrides", {})).items():
+            ps = ps.override(kind, **params)
+        return ps
 
     def describe(self) -> str:
         return "+".join(getattr(self, k) for k in POLICY_KINDS)

@@ -18,8 +18,9 @@ on the card). Four pieces:
   :mod:`repro_torch.obs` histogram estimator), SLO violations,
   slowdown-vs-isolated, Jain fairness.
 
-The reference's ``tenants.search`` (the ``pond_tail`` search objective)
-comes with the port of ``search/``.
+:mod:`repro_torch.tenants.search` (imported on first lookup of its
+objective, not here) registers the ``pond_tail`` search objective with
+:mod:`repro_torch.search`.
 
 Driver: :mod:`repro_torch.benchmarks.fig_pond` (``python -m
 repro_torch.benchmarks.run pond``).

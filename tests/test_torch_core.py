@@ -273,12 +273,15 @@ def test_params_from_numpy_match_port_params(flags):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """No module of the port nor chip_smoke.py imports jax or the JAX
-    package, by source and at run time."""
+    package, by source and at run time (the simulator, the traces and the
+    search with its objectives and driver)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)", re.M)
     files = list((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
-    code = ("import sys, repro_torch.core.famsim, repro_torch.traces; "
+    code = ("import sys, repro_torch.core.famsim, repro_torch.traces, repro_torch.search, "
+            "repro_torch.search.loop, repro_torch.tenants.search, "
+            "repro_torch.benchmarks.fig_search; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")

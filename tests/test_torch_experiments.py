@@ -12,6 +12,11 @@
   on a group whose system axis is padded; the seed threads through to the
   traces; with device traces the metrics stay within DEVICE_RTOL of the
   reference's and no trace is generated on the host.
+* The runner cache: the same plan twice hits the cache for every group
+  with bit-equal rows; a plan of the same runner keys with other traced
+  params (WFQ weight, backlog cap, ``bw_adapt``, the token bucket's rates),
+  with telemetry off and on, replays the cached runner with rows bit-equal
+  to a run after the cache is emptied; another S or ``t_pad`` is a miss.
 """
 import dataclasses
 import json
@@ -328,8 +333,8 @@ def test_execute_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             texp.run()
-    keys = tx.group_cache_keys(texp.plan(), device="cpu")
-    assert len(keys) == 1 and keys[0][6] == "steps"
+    keys = tx.group_cache_keys(texp.plan())
+    assert len(keys) == 1 and keys[0][6] == "vmap"
 
 
 def test_cli_plan_equals_reference(capsys):
@@ -354,3 +359,85 @@ def test_cli_plan_equals_reference(capsys):
     with pytest.raises(SystemExit):
         tmain(["--plan", "--policies", "prefetch=spp,nextline", "fig15"])
     assert "not supported by ['fig15']" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the runner cache
+# ---------------------------------------------------------------------------
+
+CACHE_T = 300
+#: two candidate grids of one runner key, their traced params apart
+CACHE_A = {"a": {"policies": PolicySet(scheduler="wfq").override("scheduler", weight=2.0)},
+           "b": {"flags": SimFlags(bw_adapt=True)},
+           "c": {}}
+CACHE_B = {"a": {"policies": PolicySet(scheduler="wfq").override(
+                 "scheduler", weight=0.7, backlog_cap=800.0)},
+           "b": {"policies": PolicySet().override("adaptation", mimd_increase=1.3,
+                                                  min_issue_rate=0.3)},
+           "c": {"flags": SimFlags(bw_adapt=True),
+                 "policies": PolicySet(scheduler="wfq").override("adaptation", ema_alpha=0.5)}}
+
+
+def _cache_plan(values, telemetry=0, T=CACHE_T):
+    """The candidates over one 2-node mix, numpy traces."""
+    return tx.Experiment(name="cache", T=T, base=FamConfig(telemetry=telemetry),
+                         trace_backend="numpy",
+                         axes=(tx.grid_axis("candidate", values),
+                               tx.mix_axis({"m1": ["LU", "bfs"]}))).plan()
+
+
+def _assert_bit_equal(a, b):
+    for pa, pb in zip(a.points, b.points):
+        ma, mb = a.metrics_for(pa), b.metrics_for(pb)
+        assert ma.keys() == mb.keys()
+        for k in ma:
+            assert np.array_equal(ma[k], mb[k]), (pa.coords, k)
+
+
+def test_runner_cache_same_plan_twice():
+    tx.executor._clear_exec_cache()
+    plan = _cache_plan(CACHE_A)
+    n = plan.num_groups
+    first = tx.execute(plan, device="cpu", assert_compiles=True)
+    second = tx.execute(plan, device="cpu", assert_compiles=True)
+    i1, i2 = first.info, second.info
+    assert (i1.exec_cache_misses, i1.exec_cache_hits, i1.groups_reused) == (n, 0, 0)
+    assert (i2.exec_cache_hits, i2.groups_reused, i2.exec_cache_misses, i2.compiles) == \
+        (n, n, 0, 0)
+    assert [g["exec_cache_hit"] for g in i2.groups] == [True] * n
+    assert i2.as_dict()["exec_cache_hits"] == n
+    _assert_bit_equal(first, second)
+    assert tx.executor.exec_cache_bytes() > 0
+
+
+@pytest.mark.parametrize("telemetry", [0, 8])
+def test_runner_cache_replays_other_traced_params(telemetry):
+    """A cached runner refilled with another plan's params, carry and
+    events gives the rows of a fresh runner, bit for bit."""
+    plan_a, plan_b = _cache_plan(CACHE_A, telemetry), _cache_plan(CACHE_B, telemetry)
+    assert tx.group_cache_keys(plan_a) == tx.group_cache_keys(plan_b)
+    tx.executor._clear_exec_cache()
+    a = tx.execute(plan_a, device="cpu", assert_compiles=True)
+    cached = tx.execute(plan_b, device="cpu", assert_compiles=True)
+    assert cached.info.exec_cache_hits == cached.info.groups_reused == plan_b.num_groups
+    tx.executor._clear_exec_cache()
+    fresh = tx.execute(plan_b, device="cpu", assert_compiles=True)
+    assert fresh.info.exec_cache_misses == plan_b.num_groups
+    _assert_bit_equal(cached, fresh)
+    # the params moved the rows: the test would see a carry or param left over
+    assert any(not np.array_equal(a.metrics_for(pa)[k], cached.metrics_for(pb)[k])
+               for pa, pb in zip(a.points, cached.points) for k in ("ipc", "issue_rate"))
+    if telemetry:
+        assert cached.metrics_for(cached.points[0])["telemetry"].shape[0] == telemetry
+
+
+def test_runner_cache_misses_on_another_key():
+    tx.executor._clear_exec_cache()
+    base = _cache_plan(CACHE_A)
+    tx.execute(base, device="cpu")
+    wider = _cache_plan({**CACHE_A, "d": {}, "e": {}})          # S 3 -> 5
+    longer = _cache_plan(CACHE_A, T=2 * CACHE_T)                  # another t_pad
+    for plan in (wider, longer):
+        assert tx.group_cache_keys(plan) != tx.group_cache_keys(base)
+        info = tx.execute(plan, device="cpu", assert_compiles=True).info
+        assert (info.exec_cache_misses, info.exec_cache_hits, info.groups_reused) == (1, 0, 0)

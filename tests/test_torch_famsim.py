@@ -10,7 +10,7 @@ bit today: the port mirrors XLA's sequential cumsum order.)
 Also: a padded sweep over three block sizes, a mid-run hand-over (a JAX
 state taken after k events is carried across with ``from_numpy`` and
 both sides continue), the strict scheduler and the static adaptation
-policy over the whole simulator, the event-loop runner (``run_steps``:
+policy over the whole simulator, the event-loop runner (``GroupRunner.drive``:
 windows of in-place steps, a padded last window) against JAX and against
 a plain functional loop, and the golden values ``chip_smoke.py`` holds the
 card's run against. Regenerate them with ``python tests/test_torch_famsim.py``.
@@ -138,15 +138,17 @@ def test_policy_sets_match_reference(case):
 
 
 def _runner_inputs(cfg, flags, T, seed):
-    """(step, per-node params, initial carry, events) of build_sim's
-    program for one system, for driving ``run_steps`` directly."""
+    """(runner, params, per-node params, initial carry, events) of
+    build_sim's program for one system, for driving ``GroupRunner.drive``
+    directly."""
     addrs, gaps = system_traces(WL, T, seed)
-    p = tfam._per_node(stack_params([FamParams.of(cfg, flags, device="cpu")]))
+    p = stack_params([FamParams.of(cfg, flags, device="cpu")])
+    pn = tfam._per_node(p)
     events = (torch.from_numpy(addrs[None].astype(np.int32)),
-              torch.from_numpy(gaps[None]).float() / p.cores_per_node[..., None],
+              torch.from_numpy(gaps[None]).float() / pn.cores_per_node[..., None],
               (torch.arange(T) >= int(T * 0.2))[:, None],
               torch.ones((T, 1), dtype=torch.bool))
-    return tfam._make_step(cfg, N), p, tfam._init_carry(cfg, p, N), events
+    return tfam.GroupRunner(cfg, N), p, pn, tfam._init_carry(cfg, pn, N), events
 
 
 def _event(events, i):
@@ -154,27 +156,29 @@ def _event(events, i):
     return addrs[..., i], gaps[..., i], warm[i, :, None], live[i, :, None]
 
 
-def test_window_runner_matches_reference():
-    """run_steps over T = 400 in windows of 64 (the last padded with 48
+def test_window_runner_matches_reference(monkeypatch):
+    """The runner over T = 400 in windows of 64 (the last padded with 48
     dead events) matches the JAX reference."""
+    monkeypatch.setattr(tfam, "GRAPH_EVENTS", 64)
     jout = jfam.simulate(JFamConfig(), jfam.SimFlags(), WL, T, seed=0)
-    step, p, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), T, 0)
-    nodes, _ = tfam.run_steps(step, p, carry, *events, window=64)
-    _assert_metrics(jout, {k: v[0].numpy() for k, v in tfam._metrics(nodes, p).items()})
+    runner, p, pn, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), T, 0)
+    nodes, _ = runner.drive(p, carry, *events)
+    _assert_metrics(jout, {k: v[0].numpy() for k, v in tfam._metrics(nodes, pn).items()})
 
 
 @pytest.mark.parametrize("window", [7, 150, 200])
-def test_window_runner_equals_functional_loop(window):
+def test_window_runner_equals_functional_loop(window, monkeypatch):
     """Windows of in-place steps, the last padded with dead events when
     ``window`` does not divide T, leave every carry tensor bit-identical to
     the functional loop ``carry = step(p, carry, event)``."""
+    monkeypatch.setattr(tfam, "GRAPH_EVENTS", window)
     T_short = 150
     cfg = FamConfig(sample_interval=32)
-    step, p, carry, events = _runner_inputs(
+    runner, p, pn, carry, events = _runner_inputs(
         cfg, tfam.SimFlags(bw_adapt=True, wfq=True), T_short, 5)
-    got = tfam.run_steps(step, p, carry, *events, window=window)
+    got = runner.drive(p, carry, *events)
     for i in range(T_short):
-        carry = step(p, carry, _event(events, i))
+        carry = runner.step(pn, carry, _event(events, i))
     for a, b in zip(tfam._leaves(got), tfam._leaves(carry)):
         assert torch.equal(a, b)
 
@@ -183,16 +187,16 @@ def test_in_place_step_keeps_storage_and_dead_events_are_no_ops():
     """The in-place step keeps every carry buffer's storage from event to
     event (what a captured graph relies on), and an event that is neither
     live nor warm (the padding) changes no carry tensor."""
-    step, p, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), 40, 6)
+    runner, _, pn, carry, events = _runner_inputs(FamConfig(), tfam.SimFlags(), 40, 6)
     buf = tfam._clone(carry)
     ptrs = [t.data_ptr() for t in tfam._leaves(buf)]
-    step_ = tfam._in_place(step)
+    step_ = tfam._in_place(runner.step)
     for i in range(40):
-        step_(p, buf, _event(events, i))
+        step_(pn, buf, _event(events, i))
         assert [t.data_ptr() for t in tfam._leaves(buf)] == ptrs
     before = tfam._clone(buf)
     dead = tuple(torch.zeros_like(x) for x in _event(events, 0))
-    step_(p, buf, dead)
+    step_(pn, buf, dead)
     for a, b in zip(tfam._leaves(buf), tfam._leaves(before)):
         assert torch.equal(a, b)
 
@@ -226,7 +230,7 @@ def test_masked_runner_equals_unpadded_runs():
     cfg = FamConfig(sample_interval=32)
     p = stack_params([FamParams.of(cfg, tfam.SimFlags(bw_adapt=True), device="cpu")] * 2)
     A, G = torch.from_numpy(np.stack([addrs] * 2)), torch.from_numpy(np.stack([gaps] * 2))
-    masked = tfam._make_run_masked(cfg, 1)(
+    masked = tfam.GroupRunner(cfg, 1)(
         p, A, G, torch.tensor(t_true), torch.tensor([int(t * 0.2) for t in t_true]))
     for s, t in enumerate(t_true):
         plain = tfam._make_run(cfg, 1)(p, A[:, :, :t], G[:, :, :t])
@@ -254,14 +258,15 @@ def test_mid_run_handover():
     with_s = lambda tree: jax.tree.map(lambda a: np.asarray(a)[None], tree)
     nodes = from_numpy(with_s(mid[0]), device="cpu")
     assert isinstance(nodes, tfam.NodeState)
-    p = tfam._per_node(from_numpy(with_s(jp), device="cpu"))
-    tstep = tfam._make_step(FamConfig(sample_interval=64), N)
-    gaps_t = torch.from_numpy(gaps[None, :, k:]).float() / p.cores_per_node[..., None]
-    tail = tfam.run_steps(tstep, p, (nodes, torch.from_numpy(np.array(mid[1])[None])),
-                          torch.from_numpy(addrs[None, :, k:].astype(np.int32)),
-                          gaps_t, torch.from_numpy(warm[k:, None]),
-                          torch.ones((T - k, 1), dtype=torch.bool))
-    tout = tfam._metrics(tail[0], p)
+    p = from_numpy(with_s(jp), device="cpu")
+    pn = tfam._per_node(p)
+    runner = tfam.GroupRunner(FamConfig(sample_interval=64), N)
+    gaps_t = torch.from_numpy(gaps[None, :, k:]).float() / pn.cores_per_node[..., None]
+    tail = runner.drive(p, (nodes, torch.from_numpy(np.array(mid[1])[None])),
+                        torch.from_numpy(addrs[None, :, k:].astype(np.int32)),
+                        gaps_t, torch.from_numpy(warm[k:, None]),
+                        torch.ones((T - k, 1), dtype=torch.bool))
+    tout = tfam._metrics(tail[0], pn)
     _assert_metrics(jout, {kk: v[0].numpy() for kk, v in tout.items()})
 
 

@@ -10,7 +10,7 @@
   ``token_rate``, ``lat_sum``: the port sums their few nodes in node
   order, as XLA does, so no tolerance is needed), the windows sum to the
   run totals at ``warmup_frac=0``, and a padded tail adds exact zeros
-  through ``_make_run_masked``.
+  through ``GroupRunner``.
 * The executor with telemetry: one group, every point's windows equal to
   JAX's executor, and the span names and counts of the same plan equal to
   JAX's (``compile`` apart: the port's is its CUDA graph capture, which
@@ -179,7 +179,7 @@ def test_padded_tail_adds_exact_zeros():
     cfg = fam_replace(FamConfig(), telemetry=5)
     addrs, gaps = system_traces(["LU"], 200, 0)
     p = stack_params([FamParams.of(cfg, device="cpu")] * 2)
-    run = tfam._make_run_masked(cfg, 1)
+    run = tfam.GroupRunner(cfg, 1)
     out = run(p, torch.as_tensor(np.stack([addrs] * 2)), torch.as_tensor(np.stack([gaps] * 2)),
               torch.tensor([150, 200], dtype=torch.int32), torch.tensor([30, 40], dtype=torch.int32))
     for s, t_true in enumerate((150, 200)):

@@ -177,7 +177,7 @@ def test_one_group_whatever_the_admission():
         fl = _fleets(tt.FleetSpec, tt.make_tenants, admissions=(adm,))
         plan = tt.lower_fleets(fl, T=SMALL_T).experiment.plan()
         assert plan.num_groups == 1
-        keys.append(tx.group_cache_keys(plan, device="cpu"))
+        keys.append(tx.group_cache_keys(plan))
     assert keys[0] == keys[1] == keys[2]
 
 
