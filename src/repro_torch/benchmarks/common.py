@@ -205,13 +205,13 @@ def info_row(name: str, info: RunInfo, **extra) -> dict:
 
 
 def checked_info_row(name: str, result: ExperimentResult, device="cuda",
-                     check_points: int = 0) -> dict:
+                     check_points: int = 0, eager: bool = True) -> dict:
     """:func:`info_row` (the reference's engine row of fig10 / fig12 /
     fig15, ``derived`` the planned groups) with two JSON-only checks: the
-    graph-vs-eager check (:func:`eager_check`) and, for the first
-    ``check_points`` points (none by default, as the reference), the
-    per-point check (:func:`engine_check`)."""
-    extra = {"shard_check": eager_check(result, device)}
+    graph-vs-eager check (:func:`eager_check`; left out with ``eager``
+    False) and, for the first ``check_points`` points (none by default, as
+    the reference), the per-point check (:func:`engine_check`)."""
+    extra = {"shard_check": eager_check(result, device)} if eager else {}
     if check_points:
         pts = result.points[:check_points]
         extra["check"] = engine_check(pts, [result.metrics_for(p) for p in pts],

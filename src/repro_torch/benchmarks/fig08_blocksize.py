@@ -71,14 +71,16 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
     return figure_rows(res.get, workloads(quick), info.us_per_call()), res
 
 
-def engine(res, device="cuda", check_points=None) -> dict:
+def engine(res, device="cuda", check_points=None, eager: bool = True) -> dict:
     """The ``fig08_engine`` row: the per-point engine check over the first
     ``check_points`` block-64 points (default: all of them, as the
-    reference) and the graph-vs-eager check at ``XCHECK_T`` events."""
+    reference) and the graph-vs-eager check at ``XCHECK_T`` events (left
+    out with ``eager`` False)."""
     check_pts = [p for p in res.points
                  if p.cfg.block_bytes == BLOCK_SIZES[0]][:check_points]
     row = engine_row("fig08_engine", res, check_pts, device)
-    row["shard_check"] = eager_check(res, device)
+    if eager:
+        row["shard_check"] = eager_check(res, device)
     return row
 
 

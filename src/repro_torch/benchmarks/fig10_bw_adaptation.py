@@ -109,10 +109,10 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
     return figure_rows(res.get, workloads(quick), info.us_per_call()), res
 
 
-def engine(res, device="cuda", check_points: int = 0) -> dict:
+def engine(res, device="cuda", check_points: int = 0, eager: bool = True) -> dict:
     """The ``fig10_engine`` row (:func:`~repro_torch.benchmarks.common.
     checked_info_row`)."""
-    return checked_info_row("fig10_engine", res, device, check_points)
+    return checked_info_row("fig10_engine", res, device, check_points, eager)
 
 
 def run_result(quick: bool = True, trace_backend: str = "device",

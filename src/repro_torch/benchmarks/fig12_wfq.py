@@ -168,13 +168,13 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
 
 
 def engine(res, device="cuda", check_points: int = 0,
-           policies: Optional[Mapping[str, PolicySet]] = None) -> dict:
+           policies: Optional[Mapping[str, PolicySet]] = None, eager: bool = True) -> dict:
     """The ``fig12_engine`` row, or with ``policies`` the
     ``fig12_policies_engine`` row naming the matrix
     (:func:`~repro_torch.benchmarks.common.checked_info_row`)."""
     if policies is None:
-        return checked_info_row("fig12_engine", res, device, check_points)
-    row = checked_info_row("fig12_policies_engine", res, device, check_points)
+        return checked_info_row("fig12_engine", res, device, check_points, eager)
+    row = checked_info_row("fig12_policies_engine", res, device, check_points, eager)
     row["policy_matrix"] = sorted(policies)
     return row
 

@@ -93,11 +93,12 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
     return figure_rows(res.get, _mixes(quick), info.us_per_call()), res
 
 
-def engine(res, device="cuda", quick: bool = True) -> dict:
+def engine(res, device="cuda", quick: bool = True, eager: bool = True) -> dict:
     """The ``fig14_engine`` row: the accounting, the graph-vs-eager check
-    at ``XCHECK_T`` events and, at the quick size with device traces, the
-    generation wall-clock of both backends."""
-    extra = {"shard_check": eager_check(res, device)}
+    at ``XCHECK_T`` events (left out with ``eager`` False) and, at the
+    quick size with device traces, the generation wall-clock of both
+    backends."""
+    extra = {"shard_check": eager_check(res, device)} if eager else {}
     if quick and res.info.trace_backend == "device":
         plan = plan_points(res.points, name=NAME, trace_backend="device")
         extra["trace_gen_compare"] = trace_gen_compare(plan, device)

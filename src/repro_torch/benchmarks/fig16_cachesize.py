@@ -74,14 +74,15 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
     return figure_rows(res.get, workloads(quick), info.us_per_call()), res
 
 
-def engine(res, device="cuda", check_points=CHECK_POINTS) -> dict:
+def engine(res, device="cuda", check_points=CHECK_POINTS, eager: bool = True) -> dict:
     """The ``fig16_engine`` row: the per-point engine check over the first
     ``check_points`` 256 KB points and the graph-vs-eager check at
-    ``XCHECK_T`` events."""
+    ``XCHECK_T`` events (left out with ``eager`` False)."""
     check_pts = [p for p in res.points
                  if p.cfg.dram_cache_bytes == SIZES_KB[0] << 10][:check_points]
     row = engine_row("fig16_engine", res, check_pts, device)
-    row["shard_check"] = eager_check(res, device)
+    if eager:
+        row["shard_check"] = eager_check(res, device)
     return row
 
 

@@ -1,0 +1,5 @@
+"""Checkpoint/restart for the port's trainer (:mod:`checkpointer`)."""
+from repro_torch.checkpoint.checkpointer import (  # noqa: F401
+    Checkpointer,
+    install_preemption_hook,
+)

@@ -64,7 +64,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     CUDA tensors launch the kernel that :func:`variant` names (counted in
     ``flash_attention.launches`` and, per variant, in
     ``flash_attention.variant_launches``); CPU tensors run the plain
-    version."""
+    version. The kernel has no backward: under grad mode, inputs that
+    require grad raise on any device (train through the ``"torch"``
+    attention)."""
+    nvcc.refuse_grad("flash_attention", q, k, v)
     nvcc.check_tensor("q", q, tuple(DTYPES), (None, None, None, None), None,
                       contiguous=False)
     dev = q.device

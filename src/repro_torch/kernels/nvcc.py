@@ -106,6 +106,17 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def refuse_grad(kernel, *tensors):
+    """Raise when grad mode is on and any of ``tensors`` requires grad: the
+    hand-written kernels launch on raw pointers, so their outputs carry no
+    ``grad_fn`` and a backward would drop those gradients without a word."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: call it under torch.no_grad() "
+                           f"or on inputs that do not require grad (training runs "
+                           f"the plain torch attention)")
+
+
 def check_tensor(name, t, dtype, shape, device, contiguous=True):
     """Raise unless ``t`` is a tensor of ``dtype`` and ``shape`` (a tuple;
     ``None`` entries match any size) on ``device`` (``None``: any);

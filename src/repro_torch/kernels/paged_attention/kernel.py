@@ -170,7 +170,9 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths):
     gives zeros, as the TPU kernel does.
 
     CUDA tensors launch the kernel (counted in ``paged_attention.launches``);
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version. The kernel has no backward: under
+    grad mode, inputs that require grad raise on any device."""
+    nvcc.refuse_grad("paged_attention", q, k_pool, v_pool)
     nvcc.check_tensor("q", q, tuple(DTYPES), (None, None, None), None)
     dev = q.device
     B, Hq, D = q.shape

@@ -30,9 +30,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter for serving: no gradient is ever taken (training is not
-    ported)."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter. Serving stays gradient-free through its
+    ``torch.no_grad`` entry points (``transformer.prefill`` /
+    ``decode_step``, ``Engine.generate``), not through frozen weights."""
+    return nn.Parameter(t)
 
 
 def truncated_normal(gen: Optional[torch.Generator], shape, scale, dtype,
@@ -43,6 +44,16 @@ def truncated_normal(gen: Optional[torch.Generator], shape, scale, dtype,
         return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(scale).to(dtype)
+
+
+def normal(gen: Optional[torch.Generator], shape, scale, dtype,
+           device=None) -> torch.Tensor:
+    """``scale`` times a standard normal; uninitialised when ``gen`` is
+    None."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return t.mul_(scale).to(dtype)
 
 

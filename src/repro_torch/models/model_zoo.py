@@ -1,17 +1,19 @@
-"""Unified model API: config -> Model with init/prefill/decode/init_cache.
+"""Unified model API: config -> Model with init/loss/prefill/decode/init_cache.
 
-Counterpart of ``repro.models.model_zoo`` for the dense family, the one
-the port runs so far (``transformer.py``); the other families raise
-(ROADMAP A14). ``Model.init`` returns the parameters as a
-:class:`repro_torch.models.transformer.LM` module, which ``prefill`` and
-``decode`` take where the reference takes its param pytree.
-:func:`params_from_numpy` loads the reference's
-param pytree, as numpy arrays with the layer axis stacked, into that
-module, so both packages compute the same thing.
+Counterpart of ``repro.models.model_zoo`` for the dense and MoE families,
+the ones the port runs so far (``transformer.py``); the other families
+raise (ROADMAP A14). ``Model.init`` returns the parameters as a
+:class:`repro_torch.models.transformer.LM` module (trainable parameters),
+which ``loss``, ``prefill`` and ``decode`` take where the reference takes
+its param pytree. :func:`params_from_numpy` loads the reference's param
+pytree, as numpy arrays with the layer axis stacked, into that module, so
+both packages compute the same thing.
 
 ``kernel_backend``: ``"cuda"`` sends the prefill's causal attention to the
 hand-written kernel (its plain version on CPU tensors); ``"torch"`` runs
-the reference's chunked attention in torch on any device.
+the reference's chunked attention in torch on any device. ``loss`` runs
+the ``"torch"`` attention whatever the backend (see
+:func:`repro_torch.models.transformer.lm_loss`).
 """
 from __future__ import annotations
 
@@ -41,6 +43,15 @@ class Model:
             torch.Generator(device=self.device).manual_seed(int(seed))
         return transformer.init_lm(gen, self.cfg, self.device)
 
+    # -- training -----------------------------------------------------------
+    def loss(self, params: LM, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"xent", "aux"}) of ``batch`` (``tokens``, ``labels`` and
+        optionally ``mask``), differentiable in ``params``. Attention runs
+        through the ``"torch"`` backend, as the reference trains through
+        its jnp attention: the hand-written kernel has no backward."""
+        return transformer.lm_loss(self.cfg, params, batch)
+
     # -- serving ------------------------------------------------------------
     def prefill(self, params: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
         return transformer.prefill(self.cfg, params, batch["tokens"],
@@ -57,7 +68,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device="cuda", kernel_backend: str = "cuda") -> Model:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
                                   f"(ROADMAP A14)")
     if kernel_backend not in KERNEL_BACKENDS:
@@ -88,13 +99,10 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield name, val
 
 
-@torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device="cuda") -> LM:
-    """The reference's param pytree (``transformer.init_lm``: ``embed``,
-    ``layers`` stacked on a leading layer axis, ``final_norm``) as numpy
-    arrays -> the port's LM on ``device``, every key and shape checked."""
-    dev = resolve_device(device)
-    lm = transformer.init_lm(None, cfg, dev)
+def per_layer_arrays(cfg: ModelConfig, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A reference pytree of numpy arrays, layers stacked on a leading axis
+    -> ``{port name: array}`` with the layer axis split
+    (``layers.attn.wq`` (L, ...) -> ``layers.0.attn.wq``, ...)."""
     flat = {}
     for name, arr in _flatten(tree):
         if name.startswith("layers."):
@@ -106,10 +114,27 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device="cuda") 
                 flat[f"layers.{i}.{name[len('layers.'):]}"] = arr[i]
         else:
             flat[name] = arr
+    return flat
+
+
+def check_keys(what: str, got, want) -> None:
+    if got.keys() != want.keys():
+        raise KeyError(f"{what} keys differ: missing {sorted(want.keys() - got.keys())}, "
+                       f"unexpected {sorted(got.keys() - want.keys())}")
+
+
+@torch.no_grad()
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device="cuda") -> LM:
+    """The reference's param pytree (``transformer.init_lm``: ``embed``,
+    ``layers`` stacked on a leading layer axis, ``final_norm``) as numpy
+    arrays -> the port's LM on ``device``, every key and shape checked.
+    MoE layers carry ``layers.moe.router`` / ``w_gate`` / ``w_up`` /
+    ``w_down`` and, with a dense residual, ``layers.dense_mlp.*``."""
+    dev = resolve_device(device)
+    lm = transformer.init_lm(None, cfg, dev)
+    flat = per_layer_arrays(cfg, tree)
     params = dict(lm.named_parameters())
-    if flat.keys() != params.keys():
-        raise KeyError(f"param keys differ: missing {sorted(params.keys() - flat.keys())}, "
-                       f"unexpected {sorted(flat.keys() - params.keys())}")
+    check_keys("param", flat, params)
     for name, p in params.items():
         a = np.asarray(flat[name], dtype=np.float32)
         if a.shape != tuple(p.shape):

@@ -1,27 +1,38 @@
-"""Decoder-only transformer assembly, dense FFN.
+"""Decoder-only transformer assembly: the dense and MoE families.
 
-Counterpart of ``repro.models.transformer`` (its ``transformer.py:30-216``).
+Counterpart of ``repro.models.transformer`` (its ``transformer.py:30-230``).
 One ``nn.Module`` per decoder layer (:class:`DecoderLayer`: ``norm1``,
-``attn``, ``norm2``, ``mlp``) and one for the LM (:class:`LM`: ``embed``,
-``layers``, ``final_norm``), with the reference's param keys as
-parameter names (``layers.3.attn.wq``, ``layers.3.mlp.gate``, ...). The
-layers run in a Python loop in place of ``lax.scan``; the KV cache
-``{"k", "v"}`` of shape (L, B, S_max, Hkv, D) is written in place.
-``backend`` picks the prefill attention (see
-:func:`repro_torch.models.attention.attend`). Dense FFN only: an MoE
-config raises (ROADMAP A14), so there is no aux loss; ``lm_loss`` waits
-for training.
+``attn``, ``norm2``, then ``mlp``, or ``moe`` and with a dense residual
+``dense_mlp``) and one for the LM (:class:`LM`: ``embed``, ``layers``,
+``final_norm``), with the reference's param keys as parameter names
+(``layers.3.attn.wq``, ``layers.3.moe.w_gate``, ...). The layers run in a
+Python loop in place of ``lax.scan``; the KV cache ``{"k", "v"}`` of shape
+(L, B, S_max, Hkv, D) is written in place. ``backend`` picks the prefill
+attention (see :func:`repro_torch.models.attention.attend`).
+
+:func:`forward` returns ``(logits, aux)``, the MoE load-balance loss
+summed over the layers (0 for dense layers). It takes no stance on
+gradients: under grad mode each layer runs inside
+``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` on the
+scan body, the reference's ``remat="layer"`` without a parallel context),
+so the backward recomputes one layer's activations at a time. Serving's
+:func:`prefill` and :func:`decode_step` run under ``torch.no_grad``.
+:func:`lm_loss` trains through the ``"torch"`` attention, as the reference
+trains through its jnp attention: the hand-written kernel has no backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_apply
 
 Cache = Dict[str, torch.Tensor]
 
@@ -29,13 +40,16 @@ Cache = Dict[str, torch.Tensor]
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen=None, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError("MoE layers are not ported (models/moe.py, "
-                                      "ROADMAP A14)")
         self.norm1 = L.init_norm(cfg, device=device)
         self.attn = attn_lib.init_attention(gen, cfg, device)
         self.norm2 = L.init_norm(cfg, device=device)
-        self.mlp = L.init_mlp(gen, cfg, device=device)
+        if cfg.moe is not None:
+            self.moe = init_moe(gen, cfg, device)
+            if cfg.moe.dense_residual:
+                self.dense_mlp = L.init_mlp(gen, cfg, cfg.moe.dense_d_ff or cfg.d_ff,
+                                            device=device)
+        else:
+            self.mlp = L.init_mlp(gen, cfg, device=device)
 
 
 class LM(nn.Module):
@@ -53,16 +67,30 @@ def init_lm(gen, cfg: ModelConfig, device=None) -> LM:
     return LM(cfg, gen, device)
 
 
+def _ffn(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Feed-forward (dense MLP, or MoE plus the optional dense residual)
+    -> (y, aux)."""
+    if cfg.moe is not None:
+        y, aux = moe_apply(cfg, p.moe, x)
+        if cfg.moe.dense_residual:
+            y = y + L.apply_mlp(cfg, p.dense_mlp, x)
+        return y, aux
+    return L.apply_mlp(cfg, p.mlp, x), torch.zeros((), dtype=torch.float32,
+                                                   device=x.device)
+
+
 def apply_layer(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
                 chunk: int = 512, schedule: str = "rect",
-                backend: str = "cuda") -> torch.Tensor:
+                backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     h = L.apply_norm(cfg, p.norm1, x)
     h = attn_lib.self_attention(cfg, p.attn, h, positions,
                                 window=cfg.sliding_window, chunk=chunk,
                                 schedule=schedule, backend=backend)
     x = x + h
     h = L.apply_norm(cfg, p.norm2, x)
-    return x + L.apply_mlp(cfg, p.mlp, h)
+    h, aux = _ffn(cfg, p, h)
+    return x + h, aux
 
 
 def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
@@ -79,7 +107,8 @@ def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
                                window=cfg.sliding_window)
     x = x + attn_lib.out_proj(cfg, p.attn, o)
     h = L.apply_norm(cfg, p.norm2, x)
-    return x + L.apply_mlp(cfg, p.mlp, h), (k_cache, v_cache)
+    h, _ = _ffn(cfg, p, h)
+    return x + h, (k_cache, v_cache)
 
 
 def _positions_for(tokens: torch.Tensor, positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -89,18 +118,23 @@ def _positions_for(tokens: torch.Tensor, positions: Optional[torch.Tensor]) -> t
     return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             chunk: int = 512, schedule: str = "rect",
-            backend: str = "cuda") -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
+            backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B, S, V), aux_loss). Under grad
+    mode each layer is checkpointed (recomputed in the backward)."""
     positions = _positions_for(tokens, positions)
     x = L.embed_tokens(cfg, params.embed, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = (functools.partial(checkpoint, apply_layer, use_reentrant=False,
+                             preserve_rng_state=False)
+           if torch.is_grad_enabled() else apply_layer)
     for layer in params.layers:
-        x = apply_layer(cfg, layer, x, positions, chunk=chunk, schedule=schedule,
-                        backend=backend)
+        x, a = run(cfg, layer, x, positions, chunk=chunk, schedule=schedule,
+                   backend=backend)
+        aux = aux + a
     x = L.apply_norm(cfg, params.final_norm, x)
-    return L.unembed(cfg, params.embed, x)
+    return L.unembed(cfg, params.embed, x), aux
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -132,7 +166,8 @@ def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
                             chunk=chunk, schedule=schedule, backend=backend)
         x = x + attn_lib.out_proj(cfg, layer.attn, o)
         h = L.apply_norm(cfg, layer.norm2, x)
-        x = x + L.apply_mlp(cfg, layer.mlp, h)
+        h, _ = _ffn(cfg, layer, h)
+        x = x + h
         attn_lib.cache_update(cache["k"][i], cache["v"][i], k, v, 0)
     x = L.apply_norm(cfg, params.final_norm, x[:, -1:, :])
     logits = L.unembed(cfg, params.embed, x)[:, 0, :]
@@ -155,3 +190,25 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
     x = L.apply_norm(cfg, params.final_norm, x)
     logits = L.unembed(cfg, params.embed, x)[:, 0, :]
     return logits, cache
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor], *,
+            chunk: int = 512) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over ``batch["mask"]`` (default: every
+    position) plus the MoE aux loss -> (loss, {"xent", "aux"}).
+
+    Attention runs through the ``"torch"`` backend, as the reference
+    trains through its jnp attention: the hand-written kernel has no
+    backward (its wrapper refuses inputs that require grad)."""
+    logits, aux = forward(cfg, params, batch["tokens"], batch.get("positions"),
+                          chunk=chunk, backend="torch")
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    mask = mask.to(torch.float32)
+    xent = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = xent + aux
+    return loss, {"xent": xent, "aux": aux}

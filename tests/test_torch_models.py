@@ -47,7 +47,7 @@ ARCHS = ("granite-3-2b-smoke", "gemma-2b-smoke", "yi-9b-smoke")
 
 def _close(got, want, scale, rtol):
     want = np.asarray(want, np.float32)
-    got = got.to(torch.float32).numpy() if isinstance(got, torch.Tensor) else \
+    got = got.detach().to(torch.float32).numpy() if isinstance(got, torch.Tensor) else \
         np.asarray(got, np.float32)
     np.testing.assert_allclose(got, want, atol=scale * (np.abs(want).max() + 1e-3),
                                rtol=rtol)
@@ -108,8 +108,8 @@ def test_variants_not_ported_are_unknown(arch):
 
 
 def test_build_model_refuses_what_it_does_not_run():
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(dataclasses.replace(get_config("granite-3-2b-smoke"), family="moe"),
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build_model(dataclasses.replace(get_config("granite-3-2b-smoke"), family="hybrid"),
                     device="cpu")
     with pytest.raises(ValueError, match="kernel backend"):
         build_model(get_config("granite-3-2b-smoke"), device="cpu", kernel_backend="pallas")
@@ -127,7 +127,14 @@ def test_module_params_are_the_reference_keys_and_count(arch):
     names = {n for n, _ in lm.named_parameters()}
     assert {"embed.embedding", "layers.1.attn.wq", "layers.0.mlp.gate",
             "layers.0.norm1.scale", "final_norm.scale"} <= names
-    assert not any(p.requires_grad for p in lm.parameters())
+    # trainable parameters; serving takes no gradient through its no_grad
+    # entry points
+    assert all(p.requires_grad for p in lm.parameters())
+    model = build_model(tc, device="cpu")
+    _, tok = _tokens(tc, 2, 5)
+    logits, cache = model.prefill(lm, {"tokens": tok})
+    step, cache = model.decode(lm, pad_cache(cache, 6), {"tokens": tok[:, :1], "index": 5})
+    assert not any(t.requires_grad for t in (logits, step, cache["k"], cache["v"]))
 
 
 def test_params_from_numpy_checks_keys_and_shapes():
@@ -168,9 +175,10 @@ def test_apply_norm_matches(norm, dtype):
     bias = rng.standard_normal(64).astype(np.float32)
     jp = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
     tp = L.init_norm(tc)
-    tp.scale.copy_(torch.from_numpy(scale))
-    if norm == "layernorm":
-        tp.bias.copy_(torch.from_numpy(bias))
+    with torch.no_grad():
+        tp.scale.copy_(torch.from_numpy(scale))
+        if norm == "layernorm":
+            tp.bias.copy_(torch.from_numpy(bias))
     jx, tx = _x((2, 5, 64), dtype)
     got = L.apply_norm(tc, tp, tx)
     assert got.dtype == tx.dtype
@@ -195,14 +203,15 @@ def test_apply_mlp_matches(activation, dtype):
     tc = dataclasses.replace(get_config("gemma-2b-smoke"), activation=activation, dtype=dtype)
     jp = JL.init_mlp(jax.random.PRNGKey(2), jc)
     tp = L.init_mlp(None, tc)
-    for k, v in jp.items():
-        getattr(tp, k).copy_(torch.tensor(np.asarray(v)))
+    with torch.no_grad():
+        for k, v in jp.items():
+            getattr(tp, k).copy_(torch.tensor(np.asarray(v)))
     jx, tx = _x((2, 7, 64), dtype, seed=7)
-    got = L.apply_mlp(tc, tp, tx)
+    got = L.apply_mlp(tc, tp, tx).detach()
     _close(got, JL.apply_mlp(jc, jp, jx), **_tol(dtype))
     if activation != "swiglu" and dtype == "float32":
         h = torch.nn.functional.gelu(tx @ (tp.gate if activation == "geglu" else tp.up))
-        erf = (h * (tx @ tp.up) if activation == "geglu" else h) @ tp.down
+        erf = ((h * (tx @ tp.up) if activation == "geglu" else h) @ tp.down).detach()
         assert not np.allclose(erf.numpy(), got.numpy(), atol=1e-5)
 
 
@@ -213,13 +222,14 @@ def test_embedding_scale_is_rounded_to_bfloat16_first():
     tc = dataclasses.replace(get_config("gemma-2b-smoke"), d_model=2048)
     jp = JL.init_embedding(jax.random.PRNGKey(3), jc)
     tp = L.init_embedding(None, tc)
-    tp.embedding.copy_(torch.tensor(np.asarray(jp["embedding"])))
+    with torch.no_grad():
+        tp.embedding.copy_(torch.tensor(np.asarray(jp["embedding"])))
     jt, tt = _tokens(tc, 2, 6)
-    got = L.embed_tokens(tc, tp, tt)
+    got = L.embed_tokens(tc, tp, tt).detach()
     want = np.asarray(JL.embed_tokens(jc, jp, jt).astype(jnp.float32))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
-    unrounded = (tp.embedding[tt] * float(np.sqrt(2048))).to(torch.bfloat16)
+    unrounded = (tp.embedding[tt] * float(np.sqrt(2048))).to(torch.bfloat16).detach()
     assert not torch.equal(unrounded, got)
 
 
@@ -346,7 +356,10 @@ def test_forward_matches(arch, dtype):
     jt, tt = _tokens(tc, 2, 12)
     want, _ = JT.forward(jc, None, params, jt)
     for backend in ("cuda", "torch"):
-        _close(T.forward(tc, lm, tt, backend=backend), want, **_tol(dtype))
+        with torch.no_grad():
+            logits, aux = T.forward(tc, lm, tt, backend=backend)
+        assert float(aux) == 0.0
+        _close(logits, want, **_tol(dtype))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -381,7 +394,8 @@ def test_decode_matches_teacher_forcing(arch):
     _, tc, _, lm = _setup(arch, "bfloat16")
     model = build_model(tc, device="cpu")
     _, tokens = _tokens(tc, 2, 12, seed=2)
-    full = T.forward(tc, lm, tokens).to(torch.float32)
+    with torch.no_grad():
+        full = T.forward(tc, lm, tokens)[0].to(torch.float32)
     PRE, S = 6, 12
     logits, cache = model.prefill(lm, {"tokens": tokens[:, :PRE]})
     cache = pad_cache(cache, S)
