@@ -51,7 +51,8 @@ code != 0):
 4. ``flash_attention`` vs its plain version on the card, both kernels
    (the tensor-core kernel for bf16 at D 64 / 128, the CUDA-core kernel
    for the rest): the shapes of ``tests/test_kernels.py`` and lengths that
-   end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 128, 256; Sq != Sk),
+   end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 80, 128, 256; Sq !=
+   Sk at D 64 and 80),
    f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64 and 128
    over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
    within 2e-2; each case launches the variant its type and D name; the
@@ -59,7 +60,11 @@ code != 0):
    causal) within FLASH_PATH_TOL; device time per launch there (and of
    the CUDA-core kernel in f32 at that shape), the plain version's time,
    the bound (bf16 tensor-core rate) and
-   ``scaled_dot_product_attention``'s time;
+   ``scaled_dot_product_attention``'s time; then every shape the family
+   serving phases' prefills give the kernel (zamba2-2.7b's D 80 on the
+   CUDA-core kernel; whisper-base's encoder, decoder self-attention and
+   cross-attention; qwen2-vl-72b's GQA at D 128) within FLASH_PATH_TOL,
+   each timed the same way;
 5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
@@ -96,7 +101,33 @@ code != 0):
    prefill's logits and K/V cache and every decode step's logits within
    SERVE_TOL, the (token, layer) top-8 routing choices that differ between
    the two printed; prefill tokens/s and wall per decode step;
-7c. training granite-moe-1b-a400m through ``repro_torch.train``: (a) at
+7c-7f. serving the other four families at their published widths
+   (FAMILY_SERVING; f32 params, bf16 compute, random weights from a seed),
+   one phase each: ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
+   one shared attention block after every 6, D 80; 2 x 2,048 prompt
+   tokens + 8 new; 9 CUDA-core ``flash_attention`` launches a prefill),
+   ``ssm_serving`` (xlstm-350m: 12 mLSTM + sLSTM pairs; 2 x 1,024 + 8;
+   no kernel), ``audio_serving`` (whisper-base: 6 + 6 layers over 1,500
+   frames of a seeded generator; 8 x 128 + 32; 18 tensor-core launches:
+   the encoder's 6 unmasked, the decoder's 6 causal self-attention and 6
+   cross-attention) and ``vlm_serving`` (qwen2-vl-72b cut from 80 to 8 layers to
+   fit one card, M-RoPE over (t, h, w) planes of a text span, a 32 x 32
+   image grid at one t and text; 1 x 4,096 + 8; 8 tensor-core launches):
+   the param count against the config's where the reference holds it;
+   ``Engine.generate`` with the launches counted (none in decode, no
+   other kernel); the same params teacher-forced on the generated tokens
+   under ``"cuda"`` and, where the kernel is on the path, ``"torch"``:
+   the prefill's last logits, its whole cache (KV caches, recurrent
+   states, cross K/V) and every decode step's logits within SERVE_TOL
+   (xLSTM runs the same code under both, so it runs ``"cuda"`` alone and
+   is held by its chunked prefill); zamba2's decode against one forward over
+   prompt and generated tokens (the bf16 gap printed; held block by block
+   in bf16, each block given the forward's input, and end to end in f32,
+   within SERVE_TOL); xLSTM's chunked-parallel
+   prefill (``xlstm-350m-fast``) against the sequential one within
+   SERVE_TOL; prefill tokens/s, decode ms a step and peak memory beside
+   the card's name and power limit;
+7g. training granite-moe-1b-a400m through ``repro_torch.train``: (a) at
    its published widths, ``build_train_step`` (AdamW, f32 moments) on
    SyntheticLM batches of 4 x 2,048, 2 warm-up and 8 timed steps: losses
    finite and falling (last 3 below first 3), every parameter's moment
@@ -291,7 +322,8 @@ MOE_FAST, MOE_TOKENS = 192, 4
 FLASH_SHAPES = ((2, 64, 4, 2, 32), (1, 128, 8, 1, 16), (2, 64, 4, 4, 64), (1, 256, 2, 2, 8))
 FLASH_LENGTHS = (1, 1000, 4000)
 FLASH_UNEQUAL = ((1000, 3000), (3000, 1000))
-FLASH_DIMS = (64, 128, 256)
+FLASH_DIMS = (64, 80, 128, 256)     # 80: zamba2-2.7b's shared attention
+FLASH_UNEQUAL_DIMS = (64, 80)
 # the tensor-core kernel's own cases: bf16 at its head dims, lengths that end
 # mid-tile and Sq != Sk, every group size of the dense configs and more
 # (G 6 fills no power-of-two tile), on strided views of a fused q/k/v tensor
@@ -314,7 +346,29 @@ SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|
 # MoE serving at granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py)
 MOE_SERVE_ARCH = "granite-moe-1b-a400m"
 MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
-# training granite-moe-1b-a400m (phase 7c): full width, SyntheticLM batches
+# serving the hybrid, ssm, audio and vlm families (phases 7c-7f) at their
+# published widths (src/repro/configs/zamba2_2_7b.py, xlstm_350m.py,
+# whisper_base.py, qwen2_vl_72b.py): the batch, prompt and new tokens, the
+# flash_attention launches a prefill and their variant; qwen2-vl-72b's 80
+# layers cut to 8 to fit one card
+FAMILY_SERVING = {
+    "hybrid_serving": dict(arch="zamba2-2.7b", batch=2, prompt=2048, new=8, flash=9,
+                           variant="cuda_core"),
+    "ssm_serving": dict(arch="xlstm-350m", batch=2, prompt=1024, new=8, flash=0,
+                        variant=None),
+    "audio_serving": dict(arch="whisper-base", batch=8, prompt=128, new=32, flash=18,
+                          variant="tensor_core"),
+    "vlm_serving": dict(arch="qwen2-vl-72b", batch=1, prompt=4096, new=8, flash=8,
+                        variant="tensor_core", layers=8),
+}
+# qwen2-vl's (t, h, w) planes: VLM_TEXT text tokens, a VLM_GRID x VLM_GRID
+# image at one t, then text from past the image's largest position
+VLM_TEXT, VLM_GRID = 1024, 32
+# the param count is held where the reference holds it: equal for the
+# transformer families, within 25 % for zamba2 (tests/test_models.py:116);
+# printed beside the analytic count for xLSTM and whisper
+PARAM_COUNT_REL = {"dense": 0.0, "moe": 0.0, "vlm": 0.0, "hybrid": 0.25}
+# training granite-moe-1b-a400m (phase 7g): full width, SyntheticLM batches
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_Q8_STEPS = 2, 8, 3
@@ -655,6 +709,26 @@ def _device_ms(torch, fn, n, kernel=None):
         check(len(events) == n, f"profiler saw {len(events)} of {n} {kernel} launches")
     check(events, "profiler saw no kernel")
     return sum(e.time_range.elapsed_us() for e in events) / n / 1e3
+
+
+def _device_ms_beside(torch, fn, kernel, lib, n):
+    """:func:`_device_ms` of ``fn`` (the kernel whose name contains
+    ``kernel``, once a call) and of ``lib`` (every kernel it launches), n
+    calls of each in one profiler window."""
+    fn()
+    lib()
+    with _profiled(torch) as prof:
+        for _ in range(n):
+            fn()
+        for _ in range(n):
+            lib()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    mine = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+    rest = [e.time_range.elapsed_us() for e in events if kernel not in e.name]
+    check(len(mine) == n, f"profiler saw {len(mine)} of {n} {kernel} launches")
+    check(rest, "profiler saw no kernel of the library call")
+    return sum(mine) / n / 1e3, sum(rest) / n / 1e3
 
 
 def _time(torch, fn, n):
@@ -1311,7 +1385,8 @@ def flash_vs_plain(torch):
     each case launches the variant ``variant`` names. Then the serving
     prefill's shape (bf16, causal) against the plain version within
     FLASH_PATH_TOL, timed there beside the library call and the CUDA-core
-    kernel in f32."""
+    kernel in f32, and the family serving phases' shapes
+    (:func:`_flash_path_shape`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention.kernel import variant
@@ -1324,8 +1399,8 @@ def flash_vs_plain(torch):
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1, s, s, 8, 2, d, dtype) for s in FLASH_LENGTHS for d in FLASH_DIMS
               for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(1, sq, sk, 8, 2, 64, dtype) for sq, sk in FLASH_UNEQUAL
-              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, sq, sk, 8, 2, d, dtype) for sq, sk in FLASH_UNEQUAL
+              for d in FLASH_UNEQUAL_DIMS for dtype in (torch.float32, torch.bfloat16)]
     tc_cases = [(1, sq, sk, g * (1 if g == 32 else 2), 1 if g == 32 else 2, d, torch.bfloat16)
                 for d in FLASH_TC_DIMS for sq, sk in FLASH_TC_LENGTHS for g in FLASH_TC_GROUPS]
     errs, n = {}, {}
@@ -1415,7 +1490,92 @@ def flash_vs_plain(torch):
           flush=True)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    for phase, spec in FAMILY_SERVING.items():
+        if spec["flash"]:
+            _flash_path_shape(torch, rnd, phase)
     return out
+
+
+def _path_attention_shapes(cfg, spec):
+    """[(what, launches a prefill, B, Sq, Sk, Hq, Hkv, D, causal)] of the
+    flash_attention calls a prefill of a family serving phase makes."""
+    from repro_torch.models import zamba
+    B, S, H = spec["batch"], spec["prompt"], (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.is_encoder_decoder:
+        E = cfg.encoder_seq
+        return [("encoder", cfg.encoder_layers, B, E, E, *H, False),
+                ("decoder self-attention", cfg.num_layers, B, S, S, *H, True),
+                ("cross-attention", cfg.num_layers, B, S, E, *H, False)]
+    if cfg.ssm is not None:
+        return [("shared attention", zamba.n_groups(cfg), B, S, S, *H, True)]
+    return [("self-attention", spec.get("layers", cfg.num_layers), B, S, S, *H, True)]
+
+
+def _flash_path_shape(torch, rnd, phase):
+    """flash_attention at each shape the prefill of family serving phase
+    ``phase`` gives it (:func:`_path_attention_shapes`, in the config's
+    compute type), launching the phase's variant, against the plain
+    version within FLASH_PATH_TOL; device time a launch beside the bound
+    (operations at the bf16 tensor-core rate, or bytes),
+    scaled_dot_product_attention's time and the plain version's. The
+    shapes' launches add up to the phase's a prefill."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import variant
+    spec = FAMILY_SERVING[phase]
+    cfg = get_config(spec["arch"])
+    shapes = _path_attention_shapes(cfg, spec)
+    check(sum(s[1] for s in shapes) == spec["flash"],
+          f"{phase}: the shapes' launches {shapes} add up to {spec['flash']}")
+    which = spec["variant"]
+    kernel = "flash_attention_wgmma_kernel" if which == "tensor_core" else "flash_attention_kernel"
+    dt = getattr(torch, cfg.dtype)
+    outs = []
+    for what, _, B, Sq, Sk, Hq, Hkv, D, causal in shapes:
+        shape = (f"B {B}, Sq {Sq}, Sk {Sk}, Hq {Hq}, Hkv {Hkv}, D {D}, {cfg.dtype}, "
+                 f"{'causal' if causal else 'unmasked'}")
+        q, k, v = rnd((B, Sq, Hq, D), dt), rnd((B, Sk, Hkv, D), dt), rnd((B, Sk, Hkv, D), dt)
+        check(variant(q.dtype, D) == which, f"{phase} {what} ({shape}) runs the {which} kernel")
+        before = flash_variants()
+        got = flash_attention(q, k, v, causal=causal).float()
+        want = flash_attention_ref(q, k, v, causal=causal).float()
+        torch.cuda.synchronize()
+        after = flash_variants()
+        check(after[which] == before[which] + 1 and sum(after.values()) == sum(before.values()) + 1,
+              f"{phase} {what} launched {after} (before {before}), expected {which}")
+        diff = (got - want).abs()
+        err = float(diff.max())
+        used = float((diff / (FLASH_PATH_TOL["atol"] + FLASH_PATH_TOL["rtol"] * want.abs())).max())
+        check(torch.allclose(got, want, **FLASH_PATH_TOL),
+              f"flash_attention != plain at {phase}'s {what} ({shape}): max abs err {err}, "
+              f"{used:.3g} of the allowance")
+        mean_abs = float(want.abs().mean())
+        del got, want, diff
+        isz = q.element_size()
+        nbytes = isz * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)     # q, out; k, v
+        flops = _attention_flops(B, Sq, Sk, Hq, D, causal)
+        bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms, library_ms = _device_ms_beside(
+            torch, lambda: flash_attention(q, k, v, causal=causal), kernel,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True), 20)
+        out = dict(phase=phase, what=what, shape=shape, max_abs_err=err, ms=ms,
+                   plain_ms=_time(torch, lambda: flash_attention_ref(q, k, v, causal=causal), 3),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        print(f"flash_attention at {phase}'s {what} ({shape}; {cfg.name}): max abs err vs plain "
+              f"{err:.3g} (mean |out| {mean_abs:.3g}; {used:.3g} of the allowance); {which} "
+              f"kernel {out['ms']:.4f} ms device time/launch, {flops / out['ms'] / 1e9:.2f} "
+              f"TFLOP/s, {bound_ms / out['ms']:.2%} of the bound {bound_ms:.4f} ms ({flops:.4g} "
+              f"operations at {BF16_FLOPS:.4g}/s, {nbytes} B; {bound_by}); library "
+              f"(scaled_dot_product_attention) {out['library_ms']:.4f} ms, kernel / library "
+              f"{out['ms'] / out['library_ms']:.3f}; plain {out['plain_ms']:.4f} ms/call",
+              flush=True)
+        outs.append(out)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return outs
 
 
 # --------------------------------------------------------------------------
@@ -1602,22 +1762,25 @@ def expert_path(torch):
 # phase 7: serving granite-3-2b at full width
 # --------------------------------------------------------------------------
 
-def _teacher_forced(torch, model, params, tokens, fed):
-    """Prefill ``tokens`` (B, S), its cache grown to S + N positions, then
-    N - 1 decode steps fed ``fed[:, t - 1]``, each synchronised and timed. The
+def _teacher_forced(torch, model, params, tokens, fed, extra=None, snapshot=False):
+    """Prefill ``tokens`` (B, S) (with ``extra`` prefill inputs: M-RoPE
+    positions, audio frames), its cache grown to S + N positions, then N - 1
+    decode steps fed ``fed[:, t - 1]``, each synchronised and timed. The
     logits (float32) of the prefill's last token and of every step, the
-    cache, the walls, and the launch counts after the prefill and at the
-    end (all set to 0 first)."""
+    cache, with ``snapshot`` a copy of it as the prefill left it, the walls,
+    and the launch counts after the prefill and at the end (all set to 0
+    first)."""
     from repro_torch.models import pad_cache
     B, S = tokens.shape
     N = fed.shape[1]
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, cache = model.prefill(params, {"tokens": tokens, **(extra or {})})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     at_prefill = counts()
+    prefill_cache = _tree_leaves(cache, S, clone=True) if snapshot else None
     cache = pad_cache(cache, S + N)
     out, step_s = [logits.float()], []
     for t in range(1, N):
@@ -1628,8 +1791,23 @@ def _teacher_forced(torch, model, params, tokens, fed):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         out.append(logits.float())
-    return dict(logits=out, cache=cache, prefill_s=prefill_s, step_s=step_s,
-                at_prefill=at_prefill, at_end=counts())
+    return dict(logits=out, cache=cache, prefill_cache=prefill_cache, prefill_s=prefill_s,
+                step_s=step_s, at_prefill=at_prefill, at_end=counts())
+
+
+def _tree_leaves(tree, S, clone=False, prefix=""):
+    """{dotted name: tensor} of a cache or recurrent state (nested dicts),
+    the KV caches (``k`` / ``v`` / ``attn_k`` / ``attn_v``) cut to their
+    first S positions; copies with ``clone``."""
+    from repro_torch.models.model_zoo import SEQ_KEYS
+    out = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update(_tree_leaves(leaf, S, clone, f"{prefix}{key}."))
+        else:
+            leaf = leaf[:, :, :S] if key in SEQ_KEYS else leaf
+            out[prefix + key] = leaf.clone() if clone else leaf
+    return out
 
 
 def _within(torch, got, want, what):
@@ -1807,7 +1985,7 @@ def _layerwise(torch, cfg, params, tokens, backend, inputs=None, pinned=None):
     routing recorded or pinned)."""
     from repro_torch.models import layers as Lyr
     from repro_torch.models import transformer as T
-    positions = T._positions_for(tokens, None)
+    positions = T._positions_for(cfg, tokens, None)
     x = Lyr.embed_tokens(cfg, params.embed, tokens)
     xs, updates = [], []
     with torch.no_grad(), _routing_recorded(torch, pinned) as routes:
@@ -1820,6 +1998,19 @@ def _layerwise(torch, cfg, params, tokens, backend, inputs=None, pinned=None):
     return xs, updates, routes
 
 
+def _gap(pairs):
+    """(max abs err / max|want|, the largest share of SERVE_TOL's allowance an
+    element uses) over (got, want) pairs, unchecked."""
+    err = used = 0.0
+    for got, want in pairs:
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        d = (got - want).abs()
+        err = max(err, float(d.max()) / max(scale, 1e-30))
+        used = max(used, float((d / (SERVE_TOL * scale + SERVE_TOL * want.abs())).max()))
+    return err, used
+
+
 def _end_to_end(kern, ref, what):
     """(max abs err / max|ref|, share of SERVE_TOL's allowance used) of
     the teacher-forced logits (prefill and every decode step) and the
@@ -1827,13 +2018,7 @@ def _end_to_end(kern, ref, what):
     pairs = [(k, r) for k, r in zip(kern["logits"], ref["logits"])]
     S = MOE_SERVE_PROMPT
     pairs += [(kern["cache"][c][:, :, :S], ref["cache"][c][:, :, :S]) for c in ("k", "v")]
-    err = used = 0.0
-    for a, b in pairs:
-        a, b = a.float(), b.float()
-        scale = float(b.abs().max())
-        d = (a - b).abs()
-        err = max(err, float(d.max()) / max(scale, 1e-30))
-        used = max(used, float((d / (SERVE_TOL * scale + SERVE_TOL * b.abs())).max()))
+    err, used = _gap(pairs)
     return f"{what}: max abs err / max|ref| {err:.4g}, share of the allowance {used:.4g}"
 
 
@@ -2001,7 +2186,306 @@ def moe_serving_path(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 7c: training granite-moe-1b-a400m
+# phases 7c-7f: serving the hybrid, ssm, audio and vlm families
+# --------------------------------------------------------------------------
+
+_CARD = []
+
+
+def _card():
+    """The card's name and power limit as nvidia-smi prints them."""
+    if not _CARD:
+        _CARD.append(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip())
+    return _CARD[0]
+
+
+def _vlm_positions(torch, B, S):
+    """(3, B, S) int32 M-RoPE planes (t, h, w): VLM_TEXT text tokens (all
+    three planes the index), a VLM_GRID x VLM_GRID image at one t (h and w
+    walk its rows and columns), then text from past the image's largest
+    position, so the three planes differ."""
+    i = torch.arange(S, dtype=torch.int64)
+    j = (i - VLM_TEXT).clamp(min=0)
+    image = (i >= VLM_TEXT) & (j < VLM_GRID * VLM_GRID)
+    after = VLM_TEXT + VLM_GRID + (j - VLM_GRID * VLM_GRID)
+    t = torch.where(i < VLM_TEXT, i, torch.where(image, VLM_TEXT, after))
+    h = torch.where(image, VLM_TEXT + j // VLM_GRID, t)
+    w = torch.where(image, VLM_TEXT + j % VLM_GRID, t)
+    pos = torch.stack([t, h, w]).to(torch.int32)[:, None].expand(3, B, S)
+    check(bool((pos[0] != pos[1]).any() and (pos[1] != pos[2]).any()),
+          "the M-RoPE planes differ")
+    return pos.contiguous().to(DEVICE)
+
+
+def _family_inputs(torch, cfg, B, S):
+    """The prompt tokens (random ids, seed SERVE_SEED + 1, drawn on the
+    CPU) and the family's other prefill inputs: whisper's frames (standard
+    normals, seed SERVE_SEED + 2) or qwen2-vl's M-RoPE planes."""
+    prompts = torch.Generator().manual_seed(SERVE_SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=prompts).to(DEVICE)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        frames = torch.Generator().manual_seed(SERVE_SEED + 2)
+        extra["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=frames).to(DEVICE)
+    if cfg.position == "mrope":
+        extra["positions"] = _vlm_positions(torch, B, S)
+    return tokens, extra
+
+
+def _hold(torch, what, pairs):
+    """_within over (name, got, want) -> {name: (rel err, share used)},
+    decode steps merged into one entry; ``what`` leads each failure."""
+    out = {}
+    for name, got, want in pairs:
+        r = _within(torch, got, want, f"{what} {name}")
+        key = "decode logits" if name.startswith("decode step") else name
+        old = out.get(key, (0.0, 0.0))
+        out[key] = (max(old[0], r[0]), max(old[1], r[1]))
+    return out
+
+
+def _rel_line(rel):
+    return ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in rel.items())
+
+
+def family_serving_path(torch, phase):
+    """One family at its published widths (FAMILY_SERVING[phase]), random
+    weights from a seed: Engine.generate (the main path: its
+    flash_attention launches a prefill, none in decode, no other kernel),
+    then the same params teacher-forced on the generated tokens under the
+    ``"cuda"`` backend and, where the kernel is on the path, the
+    ``"torch"`` one: the prefill's last logits, its whole cache (KV
+    caches, recurrent states, cross K/V) and every decode step's logits
+    within SERVE_TOL. With no kernel on the path (ssm_serving) the two
+    backends run the same code, so the ``"torch"`` run is not made;
+    ssm_serving holds the chunked-parallel prefill (``xlstm-350m-fast``)
+    against the sequential one within SERVE_TOL instead. hybrid_serving
+    also holds decode against one forward over prompt and generated
+    tokens (:func:`_hybrid_teacher_forcing`: block by block in bf16, end
+    to end in f32). Prints prefill tokens/s, decode ms a step and peak
+    memory."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = FAMILY_SERVING[phase]
+    cfg = get_config(spec["arch"])
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    B, S, N, flash = spec["batch"], spec["prompt"], spec["new"], spec["flash"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, analytic = sum(p.numel() for p in params.parameters()), cfg.param_count()
+    if cfg.family in PARAM_COUNT_REL:
+        check(abs(n_params - analytic) <= PARAM_COUNT_REL[cfg.family] * n_params,
+              f"{cfg.name}: {n_params} params, the config counts {analytic}")
+    tokens, extra = _family_inputs(torch, cfg, B, S)
+    engine = Engine(model, params, ServeConfig(max_new_tokens=N, seed=SERVE_SEED))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen, stats = engine.generate({"tokens": tokens, **extra})
+    wall = time.perf_counter() - t0
+    launched, variants = counts(), flash_variants()
+    want_variants = {"tensor_core": 0, "cuda_core": 0}
+    if spec["variant"]:
+        want_variants[spec["variant"]] = flash
+    check(launched["flash_attention"] == flash and variants == want_variants,
+          f"{phase}: flash_attention launched {launched['flash_attention']} times "
+          f"({variants}), expected {flash} ({want_variants})")
+    check(all(v == 0 for k, v in launched.items() if k != "flash_attention"),
+          f"{phase}: unexpected launches {launched}")
+    check(gen.shape == (B, N) and gen.dtype == np.int32 and gen.min() >= 0
+          and gen.max() < cfg.vocab_size, f"{phase}: generated tokens {gen}")
+    check(stats == {"prefill_len": S, "new_tokens": N}, f"{phase}: stats {stats}")
+    print(f"{phase} {cfg.name}: {n_params} params (the config counts {analytic}; "
+          f"{cfg.param_dtype}, {cfg.dtype} compute, {cfg.num_layers} layers, random from seed "
+          f"{SERVE_SEED}, {init_s:.3f} s to draw); Engine.generate on {B} x {S} prompt tokens "
+          f"+ {N} new in {wall:.3f} s; flash_attention launches {launched['flash_attention']} "
+          f"(by variant {variants}; counted apart from phase serving's)", flush=True)
+
+    fed = torch.from_numpy(gen).to(DEVICE)
+    kern = _teacher_forced(torch, model, params, tokens, fed, extra, snapshot=True)
+    check(kern["at_prefill"]["flash_attention"] == flash and
+          kern["at_end"]["flash_attention"] == flash,
+          f"{phase}: flash_attention launches after prefill / at the end "
+          f"{kern['at_prefill']['flash_attention']} / {kern['at_end']['flash_attention']}, "
+          f"expected {flash} / {flash} (none in decode)")
+    for lg in kern["logits"]:
+        check(lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+              f"{phase}: logits finite, (B, vocab)")
+    ref_line = ("", "")       # the torch backend's prefill and decode walls, where run
+    if flash:
+        ref = _teacher_forced(torch, build_model(cfg, device=DEVICE, kernel_backend="torch"),
+                              params, tokens, fed, extra, snapshot=True)
+        check(not any(ref["at_end"].values()),
+              f"{phase}: the torch backend launched {ref['at_end']}")
+        for lg in ref["logits"]:
+            check(lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+                  f"{phase}: torch backend logits finite, (B, vocab)")
+        check(kern["prefill_cache"].keys() == ref["prefill_cache"].keys(), f"{phase}: cache keys")
+        pairs = [("prefill logits", kern["logits"][0], ref["logits"][0])]
+        pairs += [(f"cache {k}", kern["prefill_cache"][k], ref["prefill_cache"][k])
+                  for k in kern["prefill_cache"]]
+        pairs += [(f"decode step {t} logits", kern["logits"][t], ref["logits"][t])
+                  for t in range(1, N)]
+        rel = _hold(torch, phase, pairs)
+        ref_tokens = torch.stack([lg.argmax(-1) for lg in ref["logits"]], 1).cpu().numpy()
+        print(f"{phase} vs the torch backend (max abs err / max|ref|, share of the allowance): "
+              f"{_rel_line(rel)} (tol {SERVE_TOL}); greedy tokens agreeing with the torch "
+              f"backend {float((ref_tokens == gen).mean()):.4f}", flush=True)
+        ref_line = (f" (torch backend {ref['prefill_s']:.4f} s)",
+                    f" (torch backend {np.mean(ref['step_s']) * 1e3:.3f} ms)")
+        del ref
+    steps = kern["step_s"]
+    step = float(np.mean(steps))
+    extra_line = ""
+    if cfg.ssm is not None:
+        extra_line = _hybrid_teacher_forcing(torch, cfg, params, tokens, fed, kern)
+    if cfg.xlstm is not None:
+        extra_line = _ssm_chunked(torch, cfg, params, tokens, kern)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{phase} {cfg.name} on {_card()}: prefill {kern['prefill_s']:.4f} s wall, "
+          f"{B * S / kern['prefill_s']:.1f} prefill tokens/s{ref_line[0]}; decode "
+          f"{step * 1e3:.3f} ms wall per step (min {min(steps) * 1e3:.3f}, max "
+          f"{max(steps) * 1e3:.3f} over {len(steps)} steps), {B / step:.1f} decode "
+          f"tokens/s{ref_line[1]}; peak device memory {peak / 2**30:.3f} GiB" + extra_line,
+          flush=True)
+    del params, kern, engine, model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _worst(rel):
+    return max(e for e, _ in rel.values()), max(u for _, u in rel.values())
+
+
+def _padded_sequence(torch, cfg, tokens, fed):
+    """The prompt and the fed tokens, padded with zeros to a multiple of the
+    SSD chunk (the model is causal, so the padding moves no earlier
+    position)."""
+    N = fed.shape[1]
+    seq = torch.cat([tokens, fed[:, :N - 1]], 1)
+    return torch.nn.functional.pad(seq, (0, -seq.shape[1] % cfg.ssm.chunk))
+
+
+def _hybrid_teacher_forcing(torch, cfg, params, tokens, fed, kern):
+    """zamba's prefill and decode logits against one forward over the
+    prompt and the fed tokens (tests/test_models.py:62's identity). In
+    bfloat16 through 54 layers the decode form (a recurrence a token) and
+    the forward (the chunked SSD) part by more than SERVE_TOL's allowance,
+    so, as phase moe_serving does: (1) in bfloat16 each block given the
+    forward's input to it, (2) the whole model in float32 compute, both
+    within SERVE_TOL; the bfloat16 end-to-end gap printed."""
+    import dataclasses
+    from repro_torch.models import build_model, zamba
+    S, N = tokens.shape[1], fed.shape[1]
+    seq = _padded_sequence(torch, cfg, tokens, fed)
+    with torch.no_grad():
+        full, _, _ = zamba.zamba_forward(cfg, params, seq)
+    bf16_gap = _gap((kern["logits"][t], full[:, S - 1 + t]) for t in range(N))
+    del full
+    blocks = _hybrid_blocks(torch, cfg, params, seq, S, N)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    k32 = _teacher_forced(torch, build_model(cfg32, device=DEVICE), params, tokens, fed)
+    with torch.no_grad():
+        full32, _, _ = zamba.zamba_forward(cfg32, params, seq)
+    rel32 = _hold(torch, "hybrid_serving float32 vs the forward",
+                  [(f"position {S - 1 + t}", k32["logits"][t], full32[:, S - 1 + t])
+                   for t in range(N)])
+    del full32, k32
+    return ("; prefill and decode logits vs one forward over "
+            f"{seq.shape[1]} tokens (unchecked in bf16) {bf16_gap[0]:.4g} / {bf16_gap[1]:.4g}; "
+            "bf16 block by block (the forward's input; decode form vs the forward) "
+            + ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in blocks.items())
+            + f"; float32 end to end {_worst(rel32)[0]:.4g} / {_worst(rel32)[1]:.4g}")
+
+
+def _hybrid_blocks(torch, cfg, params, seq, S, N):
+    """bfloat16, block by block along one forward over ``seq``: each
+    Mamba2 layer's update at positions S - 1 .. S + N - 2 in decode form (a
+    prefill over the first S positions, then single steps) against the
+    forward's (all positions at once), and each shared attention block's
+    (the prefill's kernel attention, then ``decode_attend`` over a KV
+    cache) likewise, every block given the forward's input to it; within
+    SERVE_TOL. Returns {"mamba layers", "shared attention": worst (rel
+    err, share of the allowance)}."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import mamba2, zamba
+    B = seq.shape[0]
+    positions = torch.arange(seq.shape[1], dtype=torch.int32, device=seq.device).expand(seq.shape)
+    sa, per = params.shared_attn, cfg.attn_every
+    window = slice(S - 1, S + N - 1)
+    mamba_pairs, attn_pairs = [], []
+    with torch.no_grad():
+        x = Lyr.embed_tokens(cfg, params.embed, seq)
+        for g in range(zamba.n_groups(cfg)):
+            for i in range(g * per, (g + 1) * per):
+                lp = params.mamba_layers[i]
+                h = Lyr.apply_norm(cfg, lp.norm, x)
+                full, _ = mamba2.apply_mamba2(cfg, lp.mixer, h)
+                out, st = mamba2.apply_mamba2(cfg, lp.mixer, h[:, :S])
+                steps = [out[:, S - 1:S]]
+                for p in range(S, S + N - 1):
+                    out, st = mamba2.apply_mamba2(cfg, lp.mixer, h[:, p:p + 1], st,
+                                                  single_step=True)
+                    steps.append(out)
+                mamba_pairs.append((f"mamba layer {i}", torch.cat(steps, 1), full[:, window]))
+                x = x + full
+            h = Lyr.apply_norm(cfg, sa.norm1, x)
+            q, k, v = A.qkv_proj(cfg, sa.attn, h)
+            q, k = Lyr.apply_rope(cfg, q, positions), Lyr.apply_rope(cfg, k, positions)
+            full = A.out_proj(cfg, sa.attn, A.attend(cfg, q, k, v, causal=True))
+            kc = k.new_zeros((B, S + N) + tuple(k.shape[2:]))
+            vc = torch.zeros_like(kc)
+            A.cache_update(kc, vc, k[:, :S], v[:, :S], 0)
+            outs = [A.attend(cfg, q[:, :S], k[:, :S], v[:, :S], causal=True)[:, S - 1:S]]
+            for p in range(S, S + N - 1):
+                A.cache_update(kc, vc, k[:, p:p + 1], v[:, p:p + 1], p)
+                outs.append(A.decode_attend(cfg, q[:, p:p + 1], kc, vc, p + 1))
+            dec = A.out_proj(cfg, sa.attn, torch.cat(outs, 1))
+            attn_pairs.append((f"shared attention after group {g}", dec, full[:, window]))
+            x = zamba._shared_mlp(cfg, sa, x + full)
+    out = {}
+    for kind, pairs in (("mamba layers", mamba_pairs), ("shared attention", attn_pairs)):
+        out[kind] = _worst(_hold(torch, "hybrid_serving block by block (bf16)", pairs))
+    return out
+
+
+def _ssm_chunked(torch, cfg, params, tokens, kern):
+    """xlstm-350m-fast (the chunked-parallel mLSTM) prefill against the
+    sequential one: last logits and every pair's state within SERVE_TOL
+    (tests/test_mamba_xlstm.py:102's identity on the whole model)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    fast = dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm, parallel_mlstm=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = build_model(fast, device=DEVICE).prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    leaves = _tree_leaves(state, tokens.shape[1])
+    pairs = [("prefill logits", logits.float(), kern["logits"][0])]
+    pairs += [(f"state {k}", leaves[k], kern["prefill_cache"][k]) for k in kern["prefill_cache"]]
+    rel = _hold(torch, "ssm_serving chunked vs sequential", pairs)
+    worst = (max(e for e, _ in rel.values()), max(u for _, u in rel.values()))
+    return (f"; chunked-parallel mLSTM prefill (chunk {cfg.xlstm.chunk}) {fast_s:.4f} s, "
+            f"{tokens.numel() / fast_s:.1f} tokens/s, vs the sequential one {worst[0]:.4g} / "
+            f"{worst[1]:.4g} (logits and states)")
+
+
+# --------------------------------------------------------------------------
+# phase 7g: training granite-moe-1b-a400m
 # --------------------------------------------------------------------------
 
 def _train_flops(cfg, B, S, experts):
@@ -3471,6 +3955,11 @@ def main(argv=None):
     moe_launched = phases.run("expert_tiering", expert_path, torch)
     serve_launched = phases.run("serving", serving_path, torch)
     phases.run("moe_serving", moe_serving_path, torch)
+    family_launched = {phase: phases.run(phase, family_serving_path, torch, phase)
+                       for phase in FAMILY_SERVING}
+    print("flash_attention launches of the family serving paths (counted apart): " +
+          ", ".join(f"{p} {n['flash_attention']}" for p, n in family_launched.items()),
+          flush=True)
     phases.run("train", train_path, torch)
     gen_s = seed_golden_traces()
     launches, _, replay_ms, grid_out = phases.run("main_path", main_path, torch)

@@ -1,9 +1,12 @@
 """Serving launcher: ``--arch <id>`` -> batched generation with the Engine.
 
-Counterpart of ``repro.launch.serve``. Weights are random, drawn on the
-device from ``--seed``; the prompts are random ids from a
-``torch.Generator`` seeded with ``--seed + 1`` (drawn on the CPU, so every
-device gets the same prompts). Runs on the card unless ``--device cpu``.
+Counterpart of ``repro.launch.serve``: every architecture of the
+registry. Weights are random, drawn on the device from ``--seed``; the
+prompts are random ids from a ``torch.Generator`` seeded with ``--seed +
+1``, and the audio family's frames standard normals from one seeded with
+``--seed + 2`` (both drawn on the CPU, so every device gets the same
+inputs); M-RoPE's three position planes are ``arange(S)`` each. Runs on
+the card unless ``--device cpu``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b
@@ -43,6 +46,14 @@ def main(argv=None):
     prompts = torch.Generator().manual_seed(args.seed + 1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                      generator=prompts).to(model.device)}
+    if cfg.position == "mrope":
+        batch["positions"] = torch.arange(args.prompt_len, dtype=torch.int32,
+                                          device=model.device).expand(
+            3, args.batch, args.prompt_len)
+    if cfg.is_encoder_decoder:
+        frames = torch.Generator().manual_seed(args.seed + 2)
+        batch["frames"] = torch.randn((args.batch, cfg.encoder_seq, cfg.d_model),
+                                      generator=frames).to(model.device)
 
     t0 = time.perf_counter()
     gen, stats = engine.generate(batch)

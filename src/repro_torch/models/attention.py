@@ -1,8 +1,8 @@
 """Attention: GQA/MQA/MHA with chunked (memory-efficient) prefill
-attention, contiguous-KV decode and sliding windows.
+attention, contiguous-KV decode, sliding windows and cross-attention.
 
-Counterpart of ``repro.models.attention`` (its ``attention.py:31-212``);
-buffered decode and cross-attention wait for the models that use them.
+Counterpart of ``repro.models.attention`` (its ``attention.py:31-237``);
+the buffered decode waits for the launcher that uses it.
 
 Layouts, as in the reference:
 
@@ -11,17 +11,19 @@ Layouts, as in the reference:
     k/v after proj    : (B, S, Hkv, D)
     KV cache (layer)  : k, v : (B, S_max, Hkv, D), plus the write index.
 
-Routing (:func:`attend`): with ``backend="cuda"``, causal self-attention
-without a window, with ``Sq == Sk`` and no query offset (the prefill and
-forward case) under the ``"rect"`` schedule goes to the hand-written
-kernel :func:`repro_torch.kernels.flash_attention.ops.attention` (its
-plain version on CPU tensors). Every other case, and every case with
+Routing (:func:`attend`): with ``backend="cuda"`` and no window, two
+cases go to the hand-written kernel
+:func:`repro_torch.kernels.flash_attention.ops.attention` (its plain
+version on CPU tensors): causal self-attention with ``Sq == Sk`` under
+the ``"rect"`` schedule (the prefill and forward case), and unmasked
+attention at any ``Sq`` and ``Sk`` (an encoder's bidirectional layers,
+cross-attention in a prefill). Every other case, and every case with
 ``backend="torch"``, runs the reference's jnp path written in torch:
 full attention for short queries, query chunks for long ones, the
 triangular group schedule for ``schedule="grouped"``. The rule is
-explicit: nothing falls back on failure. Decode attention is plain torch
-over the contiguous cache, as the reference computes it outside any
-kernel.
+explicit: nothing falls back on failure. Decode attention, self and
+cross, is plain torch over the cache, as the reference computes it
+outside any kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, param, torch_dtype
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+ROTARY = ("rope", "mrope")     # positions that rotate q and k
 
 
 class Attention(nn.Module):
@@ -61,14 +64,21 @@ def init_attention(gen, cfg: ModelConfig, device=None,
 
 def qkv_proj(cfg: ModelConfig, p: Attention, x: torch.Tensor,
              kv_x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    dt = x.dtype
-    kv_x = x if kv_x is None else kv_x
     B, S = x.shape[:2]
-    Skv = kv_x.shape[1]
-    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = (x @ p.wq.to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = kv_proj(cfg, p, x if kv_x is None else kv_x)
+    return q, k, v
+
+
+def kv_proj(cfg: ModelConfig, p: Attention, kv_x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V projections of ``kv_x`` (B, Skv, d); alone, the encoder's
+    K/V for cross-attention."""
+    B, Skv = kv_x.shape[:2]
+    dt = kv_x.dtype
     k = (kv_x @ p.wk.to(dt)).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
     v = (kv_x @ p.wv.to(dt)).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    return k, v
 
 
 def out_proj(cfg: ModelConfig, p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
@@ -171,9 +181,9 @@ def attend(cfg: ModelConfig, q, k, v, *, causal=True, window: int = 0,
     if backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel backend {backend!r}; expected one "
                          f"of {KERNEL_BACKENDS}")
-    if (backend == "cuda" and causal and window == 0 and schedule == "rect"
-            and q.shape[1] == k.shape[1]):
-        return flash_ops.attention(q, k, v, causal=True)
+    if backend == "cuda" and window == 0 and (
+            not causal or (schedule == "rect" and q.shape[1] == k.shape[1])):
+        return flash_ops.attention(q, k, v, causal=causal)
     if causal and schedule == "grouped" and q.shape[1] > chunk:
         return attend_grouped(cfg, q, k, v, window=window, chunk=chunk,
                               groups=groups)
@@ -220,9 +230,22 @@ def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
                    causal: bool = True, window: int = 0, chunk: int = 512,
                    schedule: str = "rect", backend: str = "cuda") -> torch.Tensor:
     q, k, v = qkv_proj(cfg, p, x)
-    if cfg.position == "rope":
+    if cfg.position in ROTARY:
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
     out = attend(cfg, q, k, v, causal=causal, window=window, chunk=chunk,
                  schedule=schedule, backend=backend)
     return out_proj(cfg, p, out)
+
+
+def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor], *,
+                    backend: str = "cuda") -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V, unmasked
+    (the reference's ``attend_full(causal=False)``), routed by
+    :func:`attend`: the kernel under ``backend="cuda"``."""
+    dt = x.dtype
+    B, S = x.shape[:2]
+    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = enc_kv
+    return out_proj(cfg, p, attend(cfg, q, k, v, causal=False, backend=backend))

@@ -1,0 +1,162 @@
+"""whisper-style encoder-decoder backbone.
+
+Counterpart of ``repro.models.encdec``. The conv / mel frontend is a stub,
+as in the reference: the encoder takes precomputed frame embeddings
+``frames`` (B, encoder_seq, d_model). Encoder: bidirectional
+self-attention layers; decoder: causal self-attention, then
+cross-attention to the encoder's output.
+
+Modules, with the reference's keys: :class:`EncDec` holds ``embed``
+(learned positions, tied), ``enc_pos`` (encoder_seq, d_model),
+``encoder`` (``encoder.N.norm1`` / ``attn`` / ``norm2`` / ``mlp``),
+``enc_norm``, ``decoder`` (``decoder.N.norm1`` / ``attn`` / ``norm_x`` /
+``xattn`` / ``norm2`` / ``mlp``) and ``final_norm``. The cache is
+``{"k", "v": (L, B, S_max, Hkv, D) self-attention, "xk", "xv": (L, B,
+encoder_seq, Hkv, D) cross}``; decode writes ``k`` / ``v`` in place.
+Attention routing (:func:`repro_torch.models.attention.attend`): under
+``backend="cuda"`` the encoder's bidirectional attention, the decoder's
+causal self-attention and its cross-attention in the prefill reach the
+hand-written kernel; decode attends over its caches in plain torch, as
+every family's decode does.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+
+Cache = Dict[str, torch.Tensor]
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen=None, device=None):
+        super().__init__()
+        self.norm1 = L.init_norm(cfg, device=device)
+        self.attn = attn_lib.init_attention(gen, cfg, device)
+        self.norm2 = L.init_norm(cfg, device=device)
+        self.mlp = L.init_mlp(gen, cfg, device=device)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen=None, device=None):
+        super().__init__()
+        self.norm1 = L.init_norm(cfg, device=device)
+        self.attn = attn_lib.init_attention(gen, cfg, device)
+        self.norm_x = L.init_norm(cfg, device=device)
+        self.xattn = attn_lib.init_attention(gen, cfg, device)
+        self.norm2 = L.init_norm(cfg, device=device)
+        self.mlp = L.init_mlp(gen, cfg, device=device)
+
+
+class EncDec(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen=None, device=None):
+        super().__init__()
+        pdt = L.torch_dtype(cfg.param_dtype)
+        self.embed = L.init_embedding(gen, cfg, device)
+        self.enc_pos = L.param(L.normal(gen, (cfg.encoder_seq, cfg.d_model), 0.02, pdt,
+                                        device))
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, gen, device)
+                                     for _ in range(cfg.encoder_layers))
+        self.enc_norm = L.init_norm(cfg, device=device)
+        self.decoder = nn.ModuleList(DecoderLayer(cfg, gen, device)
+                                     for _ in range(cfg.num_layers))
+        self.final_norm = L.init_norm(cfg, device=device)
+
+
+def init_encdec(gen, cfg: ModelConfig, device=None) -> EncDec:
+    return EncDec(cfg, gen, device)
+
+
+def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor, *,
+           backend: str = "cuda") -> torch.Tensor:
+    """frames: (B, encoder_seq, d_model) precomputed embeddings -> the
+    encoder's normed output in the compute type."""
+    dt = L.torch_dtype(cfg.dtype)
+    x = frames.to(dt) + params.enc_pos.to(dt)
+    for lp in params.encoder:
+        h = L.apply_norm(cfg, lp.norm1, x)
+        q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
+        o = attn_lib.attend(cfg, q, k, v, causal=False, backend=backend)
+        x = x + attn_lib.out_proj(cfg, lp.attn, o)
+        h = L.apply_norm(cfg, lp.norm2, x)
+        x = x + L.apply_mlp(cfg, lp.mlp, h)
+    return L.apply_norm(cfg, params.enc_norm, x)
+
+
+def _cross_and_mlp(cfg: ModelConfig, lp: DecoderLayer, x, enc_kv, backend: str):
+    h = L.apply_norm(cfg, lp.norm_x, x)
+    x = x + attn_lib.cross_attention(cfg, lp.xattn, h, enc_kv, backend=backend)
+    h = L.apply_norm(cfg, lp.norm2, x)
+    return x + L.apply_mlp(cfg, lp.mlp, h)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+
+
+def forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
+            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda"):
+    """Teacher-forced decoder forward -> (logits (B, S, V), aux = 0)."""
+    enc_out = encode(cfg, params, frames, backend=backend)
+    positions = _positions(tokens)
+    x = L.embed_tokens(cfg, params.embed, tokens, positions)
+    for lp in params.decoder:
+        h = L.apply_norm(cfg, lp.norm1, x)
+        x = x + attn_lib.self_attention(cfg, lp.attn, h, positions, chunk=chunk,
+                                        backend=backend)
+        x = _cross_and_mlp(cfg, lp, x, attn_lib.kv_proj(cfg, lp.xattn, enc_out), backend)
+    x = L.apply_norm(cfg, params.final_norm, x)
+    return L.unembed(cfg, params.embed, x), torch.zeros((), dtype=torch.float32,
+                                                        device=x.device)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
+            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda"):
+    """(last logits (B, V), cache with the self K/V of S positions and the
+    cross K/V of the encoder's output)."""
+    enc_out = encode(cfg, params, frames, backend=backend)
+    positions = _positions(tokens)
+    x = L.embed_tokens(cfg, params.embed, tokens, positions)
+    dt = L.torch_dtype(cfg.dtype)
+    ks, vs, xks, xvs = [], [], [], []
+    for lp in params.decoder:
+        h = L.apply_norm(cfg, lp.norm1, x)
+        q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
+        o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, backend=backend)
+        x = x + attn_lib.out_proj(cfg, lp.attn, o)
+        ek, ev = attn_lib.kv_proj(cfg, lp.xattn, enc_out)
+        x = _cross_and_mlp(cfg, lp, x, (ek, ev), backend)
+        ks.append(k.to(dt))
+        vs.append(v.to(dt))
+        xks.append(ek.to(dt))
+        xvs.append(ev.to(dt))
+    x = L.apply_norm(cfg, params.final_norm, x[:, -1:, :])
+    logits = L.unembed(cfg, params.embed, x)[:, 0, :]
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "xk": torch.stack(xks), "xv": torch.stack(xvs)}
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: EncDec, cache: Cache, tokens: torch.Tensor,
+                index: int):
+    """One-token decode -> (logits (B, V), cache with k / v written in
+    place)."""
+    B = tokens.shape[0]
+    positions = torch.full((B, 1), index, dtype=torch.int32, device=tokens.device)
+    x = L.embed_tokens(cfg, params.embed, tokens, positions)
+    for i, lp in enumerate(params.decoder):
+        h = L.apply_norm(cfg, lp.norm1, x)
+        q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
+        kc, vc = attn_lib.cache_update(cache["k"][i], cache["v"][i], k, v, index)
+        o = attn_lib.decode_attend(cfg, q, kc, vc, index + 1)
+        x = x + attn_lib.out_proj(cfg, lp.attn, o)
+        x = _cross_and_mlp(cfg, lp, x, (cache["xk"][i], cache["xv"][i]), "torch")
+    x = L.apply_norm(cfg, params.final_norm, x)
+    return L.unembed(cfg, params.embed, x)[:, 0, :], cache

@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, embeddings, RoPE, gated MLPs.
+"""Shared layer primitives: norms, embeddings, RoPE / M-RoPE, gated MLPs.
 
 Counterpart of ``repro.models.layers``. Each parameter group is a small
 ``nn.Module`` whose parameters carry the reference's dict keys (``scale``,
@@ -7,8 +7,7 @@ the reference takes the dict. Params are stored in ``param_dtype``
 (float32) and cast to the compute ``dtype`` (bfloat16) at use; norm
 statistics run in float32. Weights are drawn from an explicit
 ``torch.Generator``; ``gen=None`` leaves them uninitialised, to be loaded
-(:func:`repro_torch.models.model_zoo.params_from_numpy`). M-RoPE and
-learned positions are not ported (ROADMAP A14).
+(:func:`repro_torch.models.model_zoo.params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -102,33 +101,41 @@ def apply_norm(cfg: ModelConfig, p: Norm, x: torch.Tensor, eps: float = 1e-6) ->
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    """``embedding`` (vocab, d_model), and ``unembed`` (d_model, vocab)
-    unless the embeddings are tied."""
+    """``embedding`` (vocab, d_model), ``unembed`` (d_model, vocab) unless
+    the embeddings are tied, and ``pos_embedding`` (max(encoder_seq,
+    65536), d_model) for learned positions."""
 
     def __init__(self, cfg: ModelConfig, gen=None, device=None):
         super().__init__()
-        if cfg.position in ("learned", "mrope"):
-            raise NotImplementedError(f"{cfg.position} positions are not ported "
-                                      f"(ROADMAP A14)")
         pdt = torch_dtype(cfg.param_dtype)
         self.embedding = param(truncated_normal(gen, (cfg.vocab_size, cfg.d_model),
                                                 0.02, pdt, device))
         if not cfg.tie_embeddings:
             self.unembed = param(truncated_normal(gen, (cfg.d_model, cfg.vocab_size),
                                                   1.0 / np.sqrt(cfg.d_model), pdt, device))
+        if cfg.position == "learned":
+            # sized for the largest decoder shape of the reference's grid
+            max_pos = max(cfg.encoder_seq, 1 << 16)
+            self.pos_embedding = param(truncated_normal(gen, (max_pos, cfg.d_model),
+                                                        0.02, pdt, device))
 
 
 def init_embedding(gen, cfg: ModelConfig, device=None) -> Embedding:
     return Embedding(cfg, gen, device)
 
 
-def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token rows in the compute type; with learned positions and
+    ``positions`` (B, S) given, plus their position rows."""
     dt = torch_dtype(cfg.dtype)
     # rows gathered, then cast: the values of the reference's cast table
     x = p.embedding[tokens].to(dt)
     if cfg.embedding_scale:
         # the scale is rounded to the compute type before the multiply
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt)
+    if cfg.position == "learned" and positions is not None:
+        x = x + p.pos_embedding[positions].to(dt)
     return x
 
 
@@ -145,7 +152,7 @@ def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE and M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
@@ -158,12 +165,31 @@ def _inv_frequencies(head_dim: int, theta: float, device: torch.device) -> torch
                         device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_planes(sections: tuple, device: torch.device) -> torch.Tensor:
+    """(half,) int64: the position plane (0 t, 1 h, 2 w) of each frequency
+    pair."""
+    return torch.repeat_interleave(torch.arange(3, device=device),
+                                   torch.tensor(sections, device=device))
+
+
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Rotate ``x`` (..., S, H, D) by per-token ``positions`` (..., S)."""
-    if cfg.position == "mrope":
-        raise NotImplementedError("M-RoPE is not ported (ROADMAP A14)")
+    """Rotate ``x`` (..., S, H, D) by per-token ``positions``: (..., S) for
+    RoPE, or (3, ..., S) for M-RoPE, whose planes are (t, h, w) and
+    ``cfg.mrope_sections`` gives the number of frequency pairs each plane
+    drives (qwen2-vl)."""
+    half = cfg.head_dim // 2
     inv = _inv_frequencies(cfg.head_dim, cfg.rope_theta, x.device)
-    angles = positions.to(torch.float32)[..., None] * inv           # (..., S, half)
+    angles = positions.to(torch.float32)[..., None] * inv           # ([3,] ..., S, half)
+    if cfg.position == "mrope":
+        sec = tuple(cfg.mrope_sections)
+        if sum(sec) != half:
+            raise ValueError(f"mrope_sections {sec} must sum to head_dim // 2 = {half}")
+        plane = _mrope_planes(sec, x.device)
+        # pair j takes its angle from plane[j]: (3, half, ..., S) indexed by
+        # (plane, j) -> (half, ..., S) -> (..., S, half)
+        pairs = torch.arange(half, device=x.device)
+        angles = angles.movedim(-1, 1)[plane, pairs].movedim(0, -1)
     sin = torch.sin(angles)[..., None, :]                            # (..., S, 1, half)
     cos = torch.cos(angles)[..., None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)

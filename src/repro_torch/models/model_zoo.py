@@ -1,19 +1,24 @@
 """Unified model API: config -> Model with init/loss/prefill/decode/init_cache.
 
-Counterpart of ``repro.models.model_zoo`` for the dense and MoE families,
-the ones the port runs so far (``transformer.py``); the other families
-raise (ROADMAP A14). ``Model.init`` returns the parameters as a
-:class:`repro_torch.models.transformer.LM` module (trainable parameters),
-which ``loss``, ``prefill`` and ``decode`` take where the reference takes
-its param pytree. :func:`params_from_numpy` loads the reference's param
-pytree, as numpy arrays with the layer axis stacked, into that module, so
-both packages compute the same thing.
+Counterpart of ``repro.models.model_zoo``. Every architecture is served by
+one of four assemblies:
 
-``kernel_backend``: ``"cuda"`` sends the prefill's causal attention to the
-hand-written kernel (its plain version on CPU tensors); ``"torch"`` runs
-the reference's chunked attention in torch on any device. ``loss`` runs
-the ``"torch"`` attention whatever the backend (see
-:func:`repro_torch.models.transformer.lm_loss`).
+    dense / moe / vlm -> transformer.py      hybrid -> zamba.py
+    ssm (xlstm)       -> xlstm.py            audio  -> encdec.py
+
+``Model.init`` returns the parameters as the assembly's ``nn.Module``
+(trainable parameters), which ``loss``, ``prefill`` and ``decode`` take
+where the reference takes its param pytree. :func:`params_from_numpy`
+loads the reference's param pytree, as numpy arrays with each stack of
+layers on a leading axis, into that module, so both packages compute the
+same thing.
+
+``kernel_backend``: ``"cuda"`` sends the prefill's attention (causal
+self-attention, and the audio family's encoder and cross-attention) to
+the hand-written kernel (its plain version on CPU tensors); ``"torch"``
+runs the reference's chunked attention in torch on any device. ``loss``
+runs the ``"torch"`` attention whatever the backend: the kernel has no
+backward.
 """
 from __future__ import annotations
 
@@ -22,11 +27,25 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import KERNEL_BACKENDS, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.transformer import LM, Cache
+from repro_torch.models import encdec, transformer, xlstm, zamba
+
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+
+
+def init_params(gen, cfg: ModelConfig, device=None) -> nn.Module:
+    """The assembly's module for ``cfg``, weights from ``gen``
+    (uninitialised when ``gen`` is None)."""
+    if cfg.xlstm is not None:
+        return xlstm.init_xlstm_lm(gen, cfg, device)
+    if cfg.ssm is not None:
+        return zamba.init_zamba(gen, cfg, device)
+    if cfg.is_encoder_decoder:
+        return encdec.init_encdec(gen, cfg, device)
+    return transformer.init_lm(gen, cfg, device)
 
 
 @dataclass
@@ -36,53 +55,104 @@ class Model:
     kernel_backend: str = "cuda"
 
     # -- construction -------------------------------------------------------
-    def init(self, seed) -> LM:
+    def init(self, seed) -> nn.Module:
         """Weights drawn on the model's device from ``seed`` (an int, or a
         ``torch.Generator`` on that device)."""
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=self.device).manual_seed(int(seed))
-        return transformer.init_lm(gen, self.cfg, self.device)
+        return init_params(gen, self.cfg, self.device)
 
     # -- training -----------------------------------------------------------
-    def loss(self, params: LM, batch: Dict[str, torch.Tensor]
+    def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(loss, {"xent", "aux"}) of ``batch`` (``tokens``, ``labels`` and
-        optionally ``mask``), differentiable in ``params``. Attention runs
+        """(loss, {"xent", "aux"}) of ``batch`` (``tokens``, ``labels``; the
+        transformer also takes ``mask`` and ``positions``, the audio family
+        needs ``frames``), differentiable in ``params``. Attention runs
         through the ``"torch"`` backend, as the reference trains through
-        its jnp attention: the hand-written kernel has no backward."""
-        return transformer.lm_loss(self.cfg, params, batch)
+        its jnp attention."""
+        c = self.cfg
+        if c.xlstm is not None:
+            logits, aux, _ = xlstm.xlstm_forward(c, params, batch["tokens"])
+        elif c.ssm is not None:
+            logits, aux, _ = zamba.zamba_forward(c, params, batch["tokens"],
+                                                 backend="torch")
+        elif c.is_encoder_decoder:
+            logits, aux = encdec.forward(c, params, batch["tokens"], batch["frames"],
+                                         backend="torch")
+        else:
+            return transformer.lm_loss(c, params, batch)
+        labels = batch["labels"].to(torch.int64)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        xent = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+        return xent + aux, {"xent": xent, "aux": aux}
 
     # -- serving ------------------------------------------------------------
-    def prefill(self, params: LM, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
-        return transformer.prefill(self.cfg, params, batch["tokens"],
-                                   batch.get("positions"), backend=self.kernel_backend)
+    def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Any]:
+        """(last logits (B, V), cache) of ``batch["tokens"]`` (and
+        ``positions`` for M-RoPE, ``frames`` for the audio family)."""
+        c, be = self.cfg, self.kernel_backend
+        if c.xlstm is not None:
+            return xlstm.xlstm_prefill(c, params, batch["tokens"])
+        if c.ssm is not None:
+            return zamba.zamba_prefill(c, params, batch["tokens"], backend=be)
+        if c.is_encoder_decoder:
+            return encdec.prefill(c, params, batch["tokens"], batch["frames"], backend=be)
+        return transformer.prefill(c, params, batch["tokens"], batch.get("positions"),
+                                   backend=be)
 
-    def decode(self, params: LM, cache: Cache, batch) -> Tuple[torch.Tensor, Cache]:
+    def decode(self, params: nn.Module, cache, batch) -> Tuple[torch.Tensor, Any]:
         """batch: ``tokens`` (B, 1) and ``index`` (an int: tokens already
         cached)."""
-        return transformer.decode_step(self.cfg, params, cache, batch["tokens"],
-                                       int(batch["index"]), batch.get("positions"))
+        c = self.cfg
+        tokens, index = batch["tokens"], int(batch["index"])
+        if c.xlstm is not None:
+            return xlstm.xlstm_decode_step(c, params, cache, tokens, index)
+        if c.ssm is not None:
+            return zamba.zamba_decode_step(c, params, cache, tokens, index)
+        if c.is_encoder_decoder:
+            return encdec.decode_step(c, params, cache, tokens, index)
+        return transformer.decode_step(c, params, cache, tokens, index,
+                                       batch.get("positions"))
 
-    def init_cache(self, batch: int, max_len: int) -> Cache:
-        return transformer.init_kv_cache(self.cfg, batch, max_len, device=self.device)
+    def init_cache(self, batch: int, max_len: int):
+        c, dev = self.cfg, self.device
+        if c.xlstm is not None:
+            return xlstm.init_xlstm_state(c, batch, dev)
+        if c.ssm is not None:
+            return zamba.init_zamba_cache(c, batch, max_len, dev)
+        cache = transformer.init_kv_cache(c, batch, max_len, device=dev)
+        if c.is_encoder_decoder:
+            xshape = (c.num_layers, batch, c.encoder_seq, c.num_kv_heads, c.head_dim)
+            dt = cache["k"].dtype
+            cache["xk"] = torch.zeros(xshape, dtype=dt, device=dev)
+            cache["xv"] = torch.zeros(xshape, dtype=dt, device=dev)
+        return cache
 
 
 def build_model(cfg: ModelConfig, device="cuda", kernel_backend: str = "cuda") -> Model:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
-                                  f"(ROADMAP A14)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; expected one of "
+                         f"{FAMILIES}")
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel backend {kernel_backend!r}; expected one "
                          f"of {KERNEL_BACKENDS}")
     return Model(cfg, resolve_device(device), kernel_backend)
 
 
-def pad_cache(cache: Cache, max_len: int) -> Cache:
-    """Grow prefill-emitted KV caches to ``max_len`` along the seq axis so
-    decode can continue appending."""
+SEQ_KEYS = ("k", "v", "attn_k", "attn_v")   # caches that grow along axis 2
+
+
+def pad_cache(cache, max_len: int):
+    """Grow prefill-emitted KV caches (``k`` / ``v``, zamba's ``attn_k`` /
+    ``attn_v``) to ``max_len`` along the seq axis so decode can continue
+    appending. Recurrent states and the cross K/V (``xk`` / ``xv``) pass
+    through."""
     out = {}
     for key, leaf in cache.items():
-        if key in ("k", "v") and leaf.shape[2] < max_len:
+        if isinstance(leaf, Mapping):
+            leaf = pad_cache(leaf, max_len)
+        elif key in SEQ_KEYS and leaf.shape[2] < max_len:
             grown = leaf.new_zeros(leaf.shape[:2] + (max_len,) + leaf.shape[3:])
             grown[:, :, :leaf.shape[2]] = leaf
             leaf = grown
@@ -99,19 +169,34 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield name, val
 
 
+def stacked_prefixes(cfg: ModelConfig) -> Dict[str, int]:
+    """The param tree's stacks of layers and their leading counts."""
+    if cfg.xlstm is not None:
+        return {"pairs": xlstm.n_pairs(cfg)}
+    if cfg.ssm is not None:
+        return {"mamba_layers": cfg.num_layers}
+    if cfg.is_encoder_decoder:
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.num_layers}
+    return {"layers": cfg.num_layers}
+
+
 def per_layer_arrays(cfg: ModelConfig, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """A reference pytree of numpy arrays, layers stacked on a leading axis
-    -> ``{port name: array}`` with the layer axis split
-    (``layers.attn.wq`` (L, ...) -> ``layers.0.attn.wq``, ...)."""
+    """A reference pytree of numpy arrays, each stack of layers on a
+    leading axis -> ``{port name: array}`` with that axis split
+    (``layers.attn.wq`` (L, ...) -> ``layers.0.attn.wq``, ...; zamba's
+    ``mamba_layers``, xLSTM's ``pairs``, the encoder-decoder's ``encoder``
+    and ``decoder`` alike)."""
+    stacks = stacked_prefixes(cfg)
     flat = {}
     for name, arr in _flatten(tree):
-        if name.startswith("layers."):
+        top, _, rest = name.partition(".")
+        if top in stacks and rest:
             arr = np.asarray(arr)
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name}: {arr.shape[0]} layers, config has "
-                                 f"{cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                flat[f"layers.{i}.{name[len('layers.'):]}"] = arr[i]
+            if arr.shape[0] != stacks[top]:
+                raise ValueError(f"{name}: {arr.shape[0]} stacked, config has "
+                                 f"{stacks[top]}")
+            for i in range(stacks[top]):
+                flat[f"{top}.{i}.{rest}"] = arr[i]
         else:
             flat[name] = arr
     return flat
@@ -124,20 +209,20 @@ def check_keys(what: str, got, want) -> None:
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device="cuda") -> LM:
-    """The reference's param pytree (``transformer.init_lm``: ``embed``,
-    ``layers`` stacked on a leading layer axis, ``final_norm``) as numpy
-    arrays -> the port's LM on ``device``, every key and shape checked.
-    MoE layers carry ``layers.moe.router`` / ``w_gate`` / ``w_up`` /
-    ``w_down`` and, with a dense residual, ``layers.dense_mlp.*``."""
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], device="cuda") -> nn.Module:
+    """The reference's param pytree (``Model.init``'s) as numpy arrays ->
+    the port's module on ``device``, every key and shape checked. Stacks
+    of layers (:func:`stacked_prefixes`) are split; the embeddings,
+    zamba's ``shared_attn`` and the encoder's ``enc_pos`` are not
+    stacked."""
     dev = resolve_device(device)
-    lm = transformer.init_lm(None, cfg, dev)
+    module = init_params(None, cfg, dev)
     flat = per_layer_arrays(cfg, tree)
-    params = dict(lm.named_parameters())
+    params = dict(module.named_parameters())
     check_keys("param", flat, params)
     for name, p in params.items():
         a = np.asarray(flat[name], dtype=np.float32)
         if a.shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
         p.copy_(torch.tensor(a).to(p.dtype))
-    return lm
+    return module

@@ -1,4 +1,5 @@
-"""Decoder-only transformer assembly: the dense and MoE families.
+"""Decoder-only transformer assembly: the dense, MoE and M-RoPE (VLM)
+families.
 
 Counterpart of ``repro.models.transformer`` (its ``transformer.py:30-230``).
 One ``nn.Module`` per decoder layer (:class:`DecoderLayer`: ``norm1``,
@@ -8,7 +9,9 @@ One ``nn.Module`` per decoder layer (:class:`DecoderLayer`: ``norm1``,
 (``layers.3.attn.wq``, ``layers.3.moe.w_gate``, ...). The layers run in a
 Python loop in place of ``lax.scan``; the KV cache ``{"k", "v"}`` of shape
 (L, B, S_max, Hkv, D) is written in place. ``backend`` picks the prefill
-attention (see :func:`repro_torch.models.attention.attend`).
+attention (see :func:`repro_torch.models.attention.attend`). Positions
+default to ``arange(S)``, as (3, B, S) planes under M-RoPE; the embedding
+takes their first plane.
 
 :func:`forward` returns ``(logits, aux)``, the MoE load-balance loss
 summed over the layers (0 for dense layers). It takes no stance on
@@ -99,7 +102,7 @@ def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
     the caches written in place."""
     h = L.apply_norm(cfg, p.norm1, x)
     q, k, v = attn_lib.qkv_proj(cfg, p.attn, h)
-    if cfg.position == "rope":
+    if cfg.position in attn_lib.ROTARY:
         q = L.apply_rope(cfg, q, positions)
         k = L.apply_rope(cfg, k, positions)
     k_cache, v_cache = attn_lib.cache_update(k_cache, v_cache, k, v, index)
@@ -111,11 +114,23 @@ def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
     return x + h, (k_cache, v_cache)
 
 
-def _positions_for(tokens: torch.Tensor, positions: Optional[torch.Tensor]) -> torch.Tensor:
+def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: Optional[torch.Tensor]) -> torch.Tensor:
     if positions is not None:
         return positions
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    if cfg.position == "mrope":
+        pos = pos.expand(3, B, S)
+    return pos
+
+
+def _embed(cfg: ModelConfig, params: LM, tokens, positions) -> torch.Tensor:
+    """Token embeddings, plus learned position rows (M-RoPE's first
+    plane)."""
+    lpos = positions[0] if cfg.position == "mrope" else positions
+    return L.embed_tokens(cfg, params.embed, tokens,
+                          lpos if cfg.position == "learned" else None)
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
@@ -123,8 +138,8 @@ def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, V), aux_loss). Under grad
     mode each layer is checkpointed (recomputed in the backward)."""
-    positions = _positions_for(tokens, positions)
-    x = L.embed_tokens(cfg, params.embed, tokens)
+    positions = _positions_for(cfg, tokens, positions)
+    x = _embed(cfg, params, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     run = (functools.partial(checkpoint, apply_layer, use_reentrant=False,
                              preserve_rng_state=False)
@@ -153,13 +168,13 @@ def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
     """Forward + emit KV caches -> (logits_last (B, V), cache of S
     positions, each layer's K/V written into it in place)."""
     B, S = tokens.shape
-    positions = _positions_for(tokens, positions)
-    x = L.embed_tokens(cfg, params.embed, tokens)
+    positions = _positions_for(cfg, tokens, positions)
+    x = _embed(cfg, params, tokens, positions)
     cache = init_kv_cache(cfg, B, S, device=tokens.device)
     for i, layer in enumerate(params.layers):
         h = L.apply_norm(cfg, layer.norm1, x)
         q, k, v = attn_lib.qkv_proj(cfg, layer.attn, h)
-        if cfg.position == "rope":
+        if cfg.position in attn_lib.ROTARY:
             q = L.apply_rope(cfg, q, positions)
             k = L.apply_rope(cfg, k, positions)
         o = attn_lib.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window,
@@ -183,7 +198,9 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
     B = tokens.shape[0]
     if positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32, device=tokens.device)
-    x = L.embed_tokens(cfg, params.embed, tokens)
+        if cfg.position == "mrope":
+            positions = positions.expand(3, B, 1)
+    x = _embed(cfg, params, tokens, positions)
     for i, layer in enumerate(params.layers):
         x, _ = apply_layer_decode(cfg, layer, x, positions, cache["k"][i],
                                   cache["v"][i], index)

@@ -1,11 +1,13 @@
 """Batched serving engine: prefill + decode loop with greedy/temperature
-sampling over a zoo model.
+sampling over any zoo model.
 
 Counterpart of ``repro.serve.engine`` (``ServeConfig``, ``Engine``). One
-prefill, its KV cache grown to ``S + max_new_tokens`` positions, then
-``max_new_tokens - 1`` decode steps that write it in place, at positions
-``S, S + 1, ...``. Greedy sampling is ``argmax`` (the first index on
-ties, as ``jnp.argmax``). Temperature sampling draws with
+prefill (of the tokens and the family's extras: ``positions`` for
+M-RoPE, ``frames`` for the audio family), its KV caches grown to ``S +
+max_new_tokens`` positions (recurrent states pass through), then
+``max_new_tokens - 1`` decode steps at positions ``S, S + 1, ...``.
+Greedy sampling is ``argmax`` (the first index on ties, as
+``jnp.argmax``). Temperature sampling draws with
 ``torch.multinomial`` from a ``torch.Generator`` seeded with
 ``ServeConfig.seed``: it cannot reproduce the reference's threefry draws,
 only their distribution. The sampled tokens stay on the device and come
@@ -18,9 +20,9 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.model_zoo import Model, pad_cache
-from repro_torch.models.transformer import LM
 
 
 @dataclass
@@ -33,14 +35,16 @@ class ServeConfig:
 class Engine:
     """Simple synchronous batch engine: one batch, prefill then decode."""
 
-    def __init__(self, model: Model, params: LM, cfg: ServeConfig):
+    def __init__(self, model: Model, params: nn.Module, cfg: ServeConfig):
         self.model = model
         self.params = params
         self.cfg = cfg
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, Dict]:
-        """batch: prefill inputs (``tokens`` (B, S) on the model's device).
+        """batch: prefill inputs on the model's device: ``tokens`` (B, S)
+        and the family's extras (``positions`` (3, B, S), ``frames`` (B,
+        encoder_seq, d_model)).
 
         Returns (generated (B, max_new_tokens) int32, stats)."""
         cfg = self.cfg

@@ -31,7 +31,7 @@ from repro.models import transformer as JT
 from repro.models.model_zoo import pad_cache as j_pad_cache
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
-from repro_torch.configs.registry import ARCH_IDS, NOT_PORTED, get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import attention as A
@@ -90,26 +90,22 @@ def test_model_config_equals_reference(arch):
     assert (tc.q_dim, tc.kv_dim, tc.param_count()) == (jc.q_dim, jc.kv_dim, jc.param_count())
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise(arch):
-    assert j_get_config(arch).family == NOT_PORTED[arch]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        get_config(arch + "-smoke")
-
-
-@pytest.mark.parametrize("arch", ["granite-3-2b-fast", "yi-9b-fast"])
-def test_variants_not_ported_are_unknown(arch):
-    """Only the -smoke variant is resolved; the reference's -fast (which
-    changes xLSTM configs only) is not an alias here."""
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fast_variant_equals_reference(arch):
+    """``-fast`` resolves as the reference's: the chunked-parallel mLSTM for
+    xLSTM, every other architecture unchanged (its -smoke too)."""
+    tc, jc = get_config(arch + "-fast"), j_get_config(arch + "-fast")
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert (tc == get_config(arch)) == (tc.xlstm is None)
+    if tc.xlstm is not None:
+        assert tc.xlstm.parallel_mlstm and not get_config(arch).xlstm.parallel_mlstm
+    assert dataclasses.asdict(get_config(arch + "-fast-smoke")) == \
+        dataclasses.asdict(j_get_config(arch + "-fast-smoke"))
 
 
 def test_build_model_refuses_what_it_does_not_run():
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(dataclasses.replace(get_config("granite-3-2b-smoke"), family="hybrid"),
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_config("granite-3-2b-smoke"), family="diffusion"),
                     device="cpu")
     with pytest.raises(ValueError, match="kernel backend"):
         build_model(get_config("granite-3-2b-smoke"), device="cpu", kernel_backend="pallas")
@@ -317,13 +313,16 @@ class _Spy:
     (dict(backend="torch"), False),
     (dict(window=4), False),
     (dict(schedule="grouped"), False),
-    (dict(causal=False), False),
+    (dict(causal=False), True),
+    (dict(causal=False, Sk=24), True),
+    (dict(causal=False, window=4), False),
+    (dict(causal=False, backend="torch"), False),
     (dict(Sk=24), False),
 ])
 def test_attend_routes_the_prefill_case_to_the_kernel(monkeypatch, kw, routed):
-    """Only causal self-attention with Sq == Sk, no window, the rect schedule
-    and backend "cuda" goes to the kernel; the rest by rule to the jnp
-    path."""
+    """Under backend "cuda" with no window, causal self-attention with
+    Sq == Sk under the rect schedule and unmasked attention at any Sq, Sk
+    go to the kernel; the rest by rule to the jnp path."""
     spy = _Spy(monkeypatch)
     tc = get_config("granite-3-2b-smoke")
     kw = dict(kw)
