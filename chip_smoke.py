@@ -106,8 +106,8 @@ code != 0):
    one phase each: ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
    one shared attention block after every 6, D 80; 2 x 2,048 prompt
    tokens + 8 new; 9 CUDA-core ``flash_attention`` launches a prefill),
-   ``ssm_serving`` (xlstm-350m: 12 mLSTM + sLSTM pairs; 2 x 1,024 + 8;
-   no kernel), ``audio_serving`` (whisper-base: 6 + 6 layers over 1,500
+   ``ssm_serving`` (xlstm-350m at its published widths, its 12 mLSTM +
+   sLSTM pairs cut to 4 for time; 2 x 1,024 + 8; no kernel), ``audio_serving`` (whisper-base: 6 + 6 layers over 1,500
    frames of a seeded generator; 8 x 128 + 32; 18 tensor-core launches:
    the encoder's 6 unmasked, the decoder's 6 causal self-attention and 6
    cross-attention) and ``vlm_serving`` (qwen2-vl-72b cut from 80 to 8 layers to
@@ -143,6 +143,24 @@ code != 0):
    ``train_state_from_numpy`` state on the card and on the CPU, within
    CARD_CPU_TOL; (d) the CUDA ``flash_attention`` wrapper refuses inputs
    that require grad;
+7h. ``parallel/`` on a one-rank NCCL group (``single_device_context
+   ("cuda")``) at granite-moe-1b-a400m's published widths: (a) one MoE
+   layer at 4 x 2,048 tokens in bf16, ``moe_sharded`` at a capacity
+   factor of E / k (no slot can drop) against ``moe_dense`` within
+   SERVE_TOL; at the context's 1.25 the slots dropped, the expert rows
+   computed (E x C against moe_dense's tokens x E) and both layers' ms by
+   CUDA events; (b) 3 AdamW steps at 4 x 2,048 through
+   ``build_train_step`` on a model built with the context (the launcher's
+   path; losses finite, no hand-written kernel): step ms, tokens/s and
+   peak memory beside phase 7g's dense step, step 0's dropped slots by
+   layer; then ``launch.train.main`` itself on the smoke config; (c)
+   ``Engine.generate`` on a model built with the context at 2 x 2,048 + 8,
+   24 tensor-core ``flash_attention`` launches (counted apart), prefill
+   tokens/s beside the context-free model's; held in float32 at a
+   no-drop capacity against the context-free prefill with the routing
+   pinned: last logits and K/V cache within SERVE_TOL (the bf16 gap
+   printed); (d) ``ef_compress_allreduce`` (out + err == g) and a
+   one-stage ``pipeline_forward`` (== layer_fn per microbatch);
 8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
    padded to 16384 x 16; the traces are the figure golden's inputs, put
@@ -186,15 +204,24 @@ code != 0):
    generation seconds and events/s/device (for numpy traces also their
    host generation, which the memo keeps out of the wall); then each
    run's engine row through the driver's ``engine``: the per-point check
-   (FIG_ENGINE_POINTS points a figure at full T) exact, and on the
-   numpy-trace run (EAGER_BACKENDS) the grid at ``XCHECK_T`` events
-   graphed and re-run step by step: bit-exact;
+   (FIG_ENGINE_POINTS point a figure at full T, cut for time) exact, and on
+   the numpy-trace run (EAGER_BACKENDS) the grid at ``XCHECK_T`` events
+   graphed and re-run step by step, bit-exact (``eager_check``), and for
+   fig08 / fig16 (SHARD_FIGURES) re-run as ``("shard", 1)``, the
+   reference's ``shard_check`` key for key;
 13. fig10, fig12 and fig15 the same way (T 10,000; 3, 2 and 1 compile
    groups; device traces for fig15 only, cut for
    time: NEW_FIG_BACKENDS), the counts read around their four runs
    alone, every check of phase 12 against the golden; on the numpy-trace
    run the engine row's graph-vs-eager check at ``XCHECK_T`` and a
    per-point check of NEW_FIG_ENGINE_POINTS point;
+13b. the executor's sharded mode (``shard_executor``): the fig08 quick grid
+   at SHARD_T events on numpy traces through ``execute(cross_check_shard=
+   True)``: the batched mode (``"vmap"``) and its re-run as ``("shard",
+   1)`` (a runner of its own), every metric bit for bit, ``shard_check``
+   with the reference's keys and values; both modes' events/s/device and
+   the cache-step launches (t_pad a runner); with more than one card
+   visible, also ``("shard", device_count())``;
 14. fig12's policy matrix from the golden file (numpy traces, T 2,000):
    {fifo, wfq, strict} x {spp, nextline, bestoffset} on the ``cuda`` cache
    step, every row equal to JAX's and every point's counters exact, floats
@@ -350,12 +377,13 @@ MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
 # published widths (src/repro/configs/zamba2_2_7b.py, xlstm_350m.py,
 # whisper_base.py, qwen2_vl_72b.py): the batch, prompt and new tokens, the
 # flash_attention launches a prefill and their variant; qwen2-vl-72b's 80
-# layers cut to 8 to fit one card
+# layers cut to 8 to fit one card; xlstm-350m's 24 layers (12 pairs) cut to
+# 8 (4 pairs) for time (its token loops took 29.9-45.7 s of the run)
 FAMILY_SERVING = {
     "hybrid_serving": dict(arch="zamba2-2.7b", batch=2, prompt=2048, new=8, flash=9,
                            variant="cuda_core"),
     "ssm_serving": dict(arch="xlstm-350m", batch=2, prompt=1024, new=8, flash=0,
-                        variant=None),
+                        variant=None, layers=8),
     "audio_serving": dict(arch="whisper-base", batch=8, prompt=128, new=32, flash=18,
                           variant="tensor_core"),
     "vlm_serving": dict(arch="qwen2-vl-72b", batch=1, prompt=4096, new=8, flash=8,
@@ -390,7 +418,9 @@ FIGURES = ("fig08_blocksize", "fig14_mixes", "fig16_cachesize")
 NEW_FIGURES = ("fig10_bw_adaptation", "fig12_wfq", "fig15_allocation")
 FIG_GROUPS = {"fig10_bw_adaptation": 3, "fig12_wfq": 2}   # one per node count; else 1
 FIG_LOG_TOL = 0.01             # device traces: |log(port / JAX)| of every printed ratio
-FIG_ENGINE_POINTS = 2          # per-point engine check (the reference: 12 / 4; cut for time)
+# per-point engine check (the reference: 12 / 4; cut for time: 2 until PR 25's
+# phases parallel and shard_executor)
+FIG_ENGINE_POINTS = 1
 # phase 13's per-point check: 1 point a figure, on its numpy-trace run (the
 # reference checks none for these three)
 NEW_FIG_ENGINE_POINTS = 1
@@ -402,6 +432,10 @@ NEW_FIG_BACKENDS = {"fig10_bw_adaptation": ("numpy",), "fig12_wfq": ("numpy",),
 # numpy-trace run of each figure: the device-trace run steps the same
 # grid on other inputs, and phase 9 holds graph == eager on fig08's grid
 EAGER_BACKENDS = ("numpy",)
+# the figures whose engine row also carries the reference's shard check
+# (its fig08 / fig16 run with cross_check_shard), at XCHECK_T on the
+# numpy-trace run
+SHARD_FIGURES = ("fig08_blocksize", "fig16_cachesize")
 # the throughput benchmark (phase 15): executions a backend on the quick grid
 BENCH_REPEATS = 3
 TRACE_T = 12_000               # phase 11's trace length
@@ -2793,6 +2827,281 @@ def train_path(torch):
 
 
 # --------------------------------------------------------------------------
+# phase 7h: parallel/ on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+# granite-moe-1b-a400m at its published widths (src/repro/configs/granite_moe_1b_a400m.py)
+PARALLEL_ARCH = "granite-moe-1b-a400m"
+PARALLEL_LAYER = (4, 2048)        # (a) one MoE layer's batch and sequence
+PARALLEL_LAYER_REPEATS = 20       # timed calls of each layer
+PARALLEL_LAYER_PROFILED, PARALLEL_LAYER_TOP = 5, 6   # profiled calls, kernels printed
+PARALLEL_TRAIN_WARMUP, PARALLEL_TRAIN_STEPS = 1, 3       # (b) at TRAIN_BATCH x TRAIN_SEQ
+PARALLEL_PREFILL = (2, 2048)      # (c) the prefill's batch and prompt
+PARALLEL_PREFILL_REPEATS = 3
+# (b) the launcher itself on the smoke config, a few steps on the card
+PARALLEL_LAUNCHER = ["--arch", "granite-moe-1b-a400m-smoke", "--steps", "3", "--batch", "4",
+                     "--seq", "64", "--checkpoint-every", "100"]
+PIPELINE_MICROBATCHES = 4         # (d) one-stage pipeline over (M, 2, d_model)
+EF_ELEMENTS = 1 << 20             # (d) ef_compress_allreduce's gradient
+
+
+def _no_drop(ctx, cfg):
+    """``ctx`` at the capacity factor E / k, which makes every expert's
+    capacity the whole chunk: no slot can drop."""
+    import dataclasses
+    return dataclasses.replace(ctx, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+
+
+def _dispatch_line(rec, layers):
+    """Slots dropped per layer (the first ``layers`` records of one
+    forward), their total, and the expert rows computed a layer."""
+    per = [int(r["dropped"]) for r in rec[:layers]]
+    return per, sum(per), rec[0]["slots"], rec[0]["experts_rows"], rec[0]["capacity"]
+
+
+def _parallel_layer(torch, cfg, ctx):
+    """(a) One MoE layer at PARALLEL_LAYER in the compute type: moe_sharded
+    at a no-drop capacity against moe_dense within SERVE_TOL (the same
+    input routes alike); at the context's 1.25 the slots dropped and the
+    expert rows computed; both layers' ms by CUDA events."""
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import moe
+    B, S = PARALLEL_LAYER
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVE_SEED)
+    p = moe.init_moe(gen, cfg, DEVICE)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=DEVICE).to(Lyr.torch_dtype(cfg.dtype))
+    with torch.no_grad():
+        dense, _ = moe.moe_dense(cfg, p, x)
+        with moe.dispatch_record() as rec:
+            nodrop, _ = moe.moe_apply(cfg, p, x, parallel=_no_drop(ctx, cfg))
+        check(sum(int(r["dropped"]) for r in rec) == 0, "dropped slots at E / k capacity")
+        rel = _within(torch, nodrop, dense, "moe_sharded at a no-drop capacity vs moe_dense "
+                      "(one layer)")
+        with moe.dispatch_record() as rec:
+            y, _ = moe.moe_apply(cfg, p, x, parallel=ctx)
+        check(bool(torch.isfinite(y).all()) and y.shape == x.shape, "moe_sharded output")
+        _, dropped, slots, rows, cap = _dispatch_line(rec, 1)
+        reset_counts()
+        sharded_ms = _time(torch, lambda: moe.moe_apply(cfg, p, x, parallel=ctx),
+                           PARALLEL_LAYER_REPEATS)
+        dense_ms = _time(torch, lambda: moe.moe_dense(cfg, p, x), PARALLEL_LAYER_REPEATS)
+        launched = counts()
+        with _profiled(torch) as prof:
+            for _ in range(PARALLEL_LAYER_PROFILED):
+                moe.moe_apply(cfg, p, x, parallel=ctx)
+            torch.cuda.synchronize()
+    check(not any(launched.values()), f"the MoE layer launched {launched}")
+    by = {}
+    for name, t0, t1 in _raw_device_events(prof):
+        by[name] = by.get(name, 0) + (t1 - t0) / 1e6 / PARALLEL_LAYER_PROFILED
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:PARALLEL_LAYER_TOP]
+    nccl = sum(t for name, t in by.items() if "nccl" in name.lower())
+    dense_rows = B * S * cfg.moe.num_experts
+    print(f"parallel (a) one MoE layer of {cfg.name} at {B} x {S} tokens ({cfg.dtype}): "
+          f"moe_sharded at capacity factor {cfg.moe.num_experts / cfg.moe.top_k:g} (none "
+          f"dropped) vs moe_dense {rel[0]:.4g} max abs err / max|ref|, share of the "
+          f"allowance {rel[1]:.4g}; at {ctx.capacity_factor}: capacity {cap}, {dropped} of "
+          f"{slots} (token, choice) slots dropped, {rows} expert rows computed (E x C) "
+          f"against moe_dense's {dense_rows}; {sharded_ms:.3f} ms a layer against "
+          f"moe_dense's {dense_ms:.3f} ms (CUDA events, {PARALLEL_LAYER_REPEATS} calls); "
+          f"moe_sharded's device time {busy:.3f} ms a call over {PARALLEL_LAYER_PROFILED} "
+          f"profiled calls, NCCL kernels {nccl:.3f} ms, largest: " +
+          "; ".join(f"{name[:60]} {t:.3f} ms" for name, t in top), flush=True)
+    del p, x, dense, nodrop, y
+    return dict(sharded_ms=sharded_ms, dense_ms=dense_ms, dropped=dropped, rows=rows)
+
+
+def _parallel_train(torch, cfg, ctx, dense):
+    """(b) PARALLEL_TRAIN_STEPS AdamW steps at TRAIN_BATCH x TRAIN_SEQ
+    through build_train_step on a model built with the context (the
+    launcher's path): losses finite, no hand-written kernel; step ms,
+    tokens/s and peak memory beside phase train's dense step; the slots
+    dropped per layer at step 0; then ``launch.train.main`` itself on the
+    smoke config."""
+    import tempfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model, moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import build_train_step, init_train_state
+    model = build_model(cfg, ctx, device=DEVICE)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, SERVE_SEED)
+    step = build_train_step(model, AdamWConfig(**TRAIN_OPT))
+    reset_counts()
+    losses, walls = [], []
+    for i in range(PARALLEL_TRAIN_WARMUP + PARALLEL_TRAIN_STEPS):
+        batch = data.batch(i, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe.dispatch_record() as rec:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            per, dropped, slots, rows, cap = _dispatch_line(rec, cfg.num_layers)
+    launched = counts()
+    check(not any(launched.values()), f"a train step launched hand-written kernels: {launched}")
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    step_s = float(np.mean(walls[PARALLEL_TRAIN_WARMUP:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"parallel (b) train {cfg.name} through build_train_step on a model built with "
+          f"single_device_context: losses {[round(v, 4) for v in losses]}; "
+          f"{step_s * 1e3:.1f} ms a step ({PARALLEL_TRAIN_STEPS} after "
+          f"{PARALLEL_TRAIN_WARMUP} warm-up), {tokens / step_s:.1f} tokens/s, peak "
+          f"{peak:.2f} GiB; phase train's moe_dense step in this run {dense['step_ms']:.1f} "
+          f"ms, {dense['tokens_s']:.1f} tokens/s, peak {dense['peak'] / 2**30:.2f} GiB; step 0's "
+          f"dispatch: capacity {cap}, {dropped} of {slots * cfg.num_layers} slots dropped "
+          f"(by layer {per}), {rows} expert rows a layer", flush=True)
+    del state, metrics, model, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = launch_train.main(PARALLEL_LAUNCHER + ["--device", DEVICE, "--ckpt-dir", tmp])
+    check(report.steps == 3 and all(np.isfinite(report.losses)),
+          f"launch.train on the card: {report.steps} steps, losses {report.losses}")
+    return dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak=peak, dropped=dropped)
+
+
+def _parallel_prefill(torch, cfg, ctx):
+    """(c) Engine.generate on a model built with the context at
+    PARALLEL_PREFILL (one tensor-core flash_attention launch a layer,
+    counted apart); prefill tokens/s beside the context-free model's; the
+    slots dropped a layer at 1.25; held: in float32 compute at a no-drop
+    capacity against the context-free prefill with the routing pinned,
+    the last logits and the K/V cache within SERVE_TOL (the bfloat16 gap
+    printed: the MoE combine rounds differently, and routing is a
+    discontinuity, see moe_serving)."""
+    import dataclasses
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve.engine import Engine, ServeConfig
+    B, S = PARALLEL_PREFILL
+    model = build_model(cfg, ctx, device=DEVICE)
+    plain = build_model(cfg, device=DEVICE)
+    params = model.init(SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(SERVE_SEED + 2)).to(DEVICE)
+    engine = Engine(model, params, ServeConfig(max_new_tokens=MOE_SERVE_NEW, seed=SERVE_SEED))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen, stats = engine.generate({"tokens": tokens})
+    wall = time.perf_counter() - t0
+    launched, variants = counts(), flash_variants()
+    L = cfg.num_layers
+    check(launched["flash_attention"] == L and variants == {"tensor_core": L, "cuda_core": 0},
+          f"parallel prefill: flash_attention {launched['flash_attention']} ({variants}), "
+          f"expected {L} tensor_core")
+    check(not any(v for k, v in launched.items() if k != "flash_attention"),
+          f"unexpected launches on the parallel serving path: {launched}")
+    check(gen.shape == (B, MOE_SERVE_NEW) and gen.min() >= 0 and gen.max() < cfg.vocab_size,
+          f"generated tokens {gen}")
+    walls = {}
+    for name, m in (("ctx", model), ("plain", plain)):
+        w = []
+        for _ in range(PARALLEL_PREFILL_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with moe.dispatch_record() as rec:
+                m.prefill(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+            w.append(time.perf_counter() - t0)
+            if name == "ctx":
+                per, dropped, slots, rows, cap = _dispatch_line(rec, L)
+        walls[name] = float(np.median(w))
+    with torch.no_grad(), _routing_recorded(torch) as routes:
+        bf_ctx = build_model(cfg, _no_drop(ctx, cfg), device=DEVICE).prefill(
+            params, {"tokens": tokens})
+    with torch.no_grad(), _routing_recorded(torch, pinned=routes):
+        bf_plain = plain.prefill(params, {"tokens": tokens})
+    bf_gap = _gap([(bf_ctx[0], bf_plain[0])] + [(bf_ctx[1][k], bf_plain[1][k])
+                                                for k in ("k", "v")])
+    del bf_ctx, bf_plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad(), _routing_recorded(torch) as routes32:
+        got = build_model(cfg32, _no_drop(ctx, cfg32), device=DEVICE).prefill(
+            params, {"tokens": tokens})
+    with torch.no_grad(), _routing_recorded(torch, pinned=routes32):
+        want = build_model(cfg32, device=DEVICE).prefill(params, {"tokens": tokens})
+    rel = {"logits": _within(torch, got[0], want[0], "parallel f32 prefill logits")}
+    for k in ("k", "v"):
+        rel[f"{k} cache"] = _within(torch, got[1][k], want[1][k], f"parallel f32 {k} cache")
+    print(f"parallel (c) {cfg.name} served with single_device_context: Engine.generate on "
+          f"{B} x {S} + {MOE_SERVE_NEW} new in {wall:.3f} s; flash_attention launches "
+          f"{launched['flash_attention']} (by variant {variants}; counted apart); prefill "
+          f"{walls['ctx']:.4f} s = {B * S / walls['ctx']:.1f} tokens/s (median of "
+          f"{PARALLEL_PREFILL_REPEATS}), the context-free model (moe_dense) {walls['plain']:.4f} "
+          f"s = {B * S / walls['plain']:.1f} tokens/s; at {ctx.capacity_factor}: capacity "
+          f"{cap}, {dropped} of {slots * L} slots dropped (by layer {per}); held in float32 "
+          f"at a no-drop capacity against the context-free prefill, routing pinned: "
+          + ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in rel.items()) +
+          f" (max abs err / max|ref|, share of the allowance; tol {SERVE_TOL}); unchecked, "
+          f"the same in bfloat16: {bf_gap[0]:.4g} / {bf_gap[1]:.4g}",
+          flush=True)
+    del params, engine, model, plain, got, want
+    torch.cuda.empty_cache()
+    return launched, dict(prefill_s=walls["ctx"], plain_s=walls["plain"], dropped=dropped)
+
+
+def _parallel_collectives(torch, ctx):
+    """(d) ef_compress_allreduce and pipeline_forward on the one-rank
+    group: out + err == g (tests/test_parallel.py:53-66), the error
+    feedback carrying g + err exactly; one stage == layer_fn per
+    microbatch."""
+    from repro_torch.parallel.compression import ef_compress_allreduce
+    from repro_torch.parallel.pipeline import pipeline_forward
+    gen = torch.Generator(device=DEVICE).manual_seed(SERVE_SEED)
+    g = torch.randn(EF_ELEMENTS, generator=gen, device=DEVICE)
+    out, err = ef_compress_allreduce(g, torch.zeros_like(g), ctx.mesh, "data")
+    gap = float((out + err - g).abs().max())
+    check(gap <= 1e-6 * float(g.abs().max()), f"ef_compress_allreduce: out + err - g {gap}")
+    carried = torch.randn(EF_ELEMENTS, generator=gen, device=DEVICE) * 1e-3
+    out2, err2 = ef_compress_allreduce(g, carried, ctx.mesh, "data")
+    gap2 = float((out2 + err2 - (g + carried)).abs().max())
+    check(gap2 <= 1e-6 * float((g + carried).abs().max()), f"error feedback: {gap2}")
+    d = 1024
+    w = torch.randn(1, d, d, generator=gen, device=DEVICE) / d ** 0.5
+    x = torch.randn(PIPELINE_MICROBATCHES, 2, d, generator=gen, device=DEVICE)
+    layer = lambda p, h: torch.tanh(h @ p[0])
+    got = pipeline_forward(layer, ctx.mesh, "model", 1, PIPELINE_MICROBATCHES)(w, x)
+    want = torch.stack([layer(w, xm) for xm in x])
+    check(torch.equal(got, want), "one-stage pipeline_forward != layer_fn per microbatch")
+    print(f"parallel (d) on the one-rank group: ef_compress_allreduce over {EF_ELEMENTS} "
+          f"floats, |out + err - g| {gap:.3g}, with a carried error {gap2:.3g}; a one-stage "
+          f"pipeline over {PIPELINE_MICROBATCHES} microbatches equal to layer_fn", flush=True)
+
+
+def parallel_path(torch, dense):
+    """Phase 7h: ``single_device_context("cuda")`` (a one-rank NCCL group)
+    and granite-moe-1b-a400m at its published widths: (a) one MoE layer,
+    (b) the launcher's train path, (c) a prefill through the Engine, (d)
+    the collectives. ``dense`` is phase train's result. Returns the
+    prefill's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.parallel import single_device_context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = single_device_context(DEVICE)
+    mesh = ctx.mesh
+    backend = torch.distributed.get_backend(mesh.groups["model"])
+    check(mesh.shape == {"data": 1, "model": 1} and backend == ("nccl" if DEVICE == "cuda"
+                                                                else "gloo"),
+          f"single_device_context: mesh {mesh.shape}, backend {backend}")
+    print(f"parallel: single_device_context({DEVICE!r}): mesh {mesh.shape} over a one-rank "
+          f"{backend} group; use_ep {ctx.use_ep}, capacity_factor {ctx.capacity_factor}, "
+          f"moe_token_chunk {ctx.moe_token_chunk}, remat {ctx.remat!r}", flush=True)
+    cfg = get_config(PARALLEL_ARCH)
+    _parallel_layer(torch, cfg, ctx)
+    _parallel_train(torch, cfg, ctx, dense)
+    launched, _ = _parallel_prefill(torch, cfg, ctx)
+    _parallel_collectives(torch, ctx)
+    return launched
+
+
+# --------------------------------------------------------------------------
 # phases 8-9: the simulator's path
 # --------------------------------------------------------------------------
 
@@ -3110,14 +3419,22 @@ def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s)
         check(c["points_checked"] == kw["check_points"] and c["max_rel_diff"] == 0.0,
               f"{name} {backend}: per-point check {c}")
     rows = rows + [row]
-    sc = row.get("shard_check")
-    check((sc is not None) == kw["eager"], f"{name} {backend}: shard check {sc}")
+    sc = row.get("eager_check")
+    check((sc is not None) == kw["eager"], f"{name} {backend}: eager check {sc}")
     if sc is not None:
         check(sc["primary"] == "graph" and sc["alt"] == "eager" and sc["bit_exact"],
               f"{name} {backend}: graph vs eager at T {sc['T']}: {sc}")
         check(sc["T"] == min(XCHECK_T, res.points[0].T) and sc["launches"] == sc["T"],
               f"{name} {backend}: the graph-vs-eager check's graphed group launched "
               f"fused_cache_step {sc['launches']} times at T {sc['T']}")
+    # the reference's shard check, on the figures whose rows carry it
+    shard = row.get("shard_check")
+    check((shard is not None) == (kw["eager"] and name in SHARD_FIGURES),
+          f"{name} {backend}: shard check {shard}")
+    if shard is not None:
+        check(shard == {"group": 0, "primary": "vmap", "alt": "('shard', 1)",
+                        "systems": info.groups[0]["S_exec"], "bit_exact": True},
+              f"{name} {backend}: shard check {shard}")
     want = golden["figures"][name][backend]
     got = {r["name"]: r["derived"] for r in rows}
     check(list(got) == list(want["derived"]), f"{name}: rows {list(got)}")
@@ -3166,8 +3483,9 @@ def _figure_checks(name, backend, mod, rows, res, wall, golden, grid_out, gen_s)
           f"{info.events / info.wall_s:.1f} events/s/device; {gen}; driver's figure run "
           f"{wall:.3f} s; engine row {engine_s:.3f} s (per-point check of "
           f"{row.get('check', {}).get('points_checked', 0)} points, " +
-          (f"graph == eager at T {sc['T']} on {sc['systems']} systems)" if sc else
-           "graph vs eager left to the numpy-trace run)"), flush=True)
+          (f"graph == eager at T {sc['T']} on {sc['systems']} systems" if sc else
+           "graph vs eager left to the numpy-trace run") +
+          (f"; shard_check {json.dumps(shard)})" if shard else ")"), flush=True)
     for r in rows:
         print(f"  {r['name']},{r['us_per_call']:.3f},\"{r['derived']}\"")
 
@@ -3200,6 +3518,57 @@ def figures_path(torch, grid_out, gen_s, names=FIGURES, backends=None):
     for run in runs:
         _figure_checks(*run, golden, grid_out, gen_s)
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 13b: the executor's sharded mode
+# --------------------------------------------------------------------------
+
+SHARD_T = T_CHECK              # the fig08 quick grid's events in phase shard_executor
+
+
+def shard_executor_path(torch):
+    """Phase 13b: the fig08 quick grid (numpy traces) at SHARD_T events
+    through ``execute(cross_check_shard=True)``: the batched mode
+    (``"vmap"``, every visible card's count when there is one card) and
+    its re-run as ``("shard", 1)``, one runner on the card each, bit for
+    bit, ``shard_check`` with the reference's keys and values; both
+    modes' events/s/device. With more than one card visible, also
+    ``("shard", device_count())`` against ``"vmap"``."""
+    import dataclasses
+    from repro_torch.benchmarks import fig08_blocksize as f08
+    from repro_torch.experiments import execute
+    plan = dataclasses.replace(f08.experiment(quick=True, trace_backend="numpy"),
+                               T=SHARD_T).plan()
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    runs = [None] + ([cards] if cards > 1 else [])
+    for D in runs:
+        empty_runner_cache()
+        reset_counts()
+        res = execute(plan, devices=D, cross_check_shard=True, assert_compiles=True,
+                      device=DEVICE)
+        launched = counts()
+        info, sc = res.info, res.info.shard_check
+        S_exec, t_pad = info.groups[0]["S_exec"], info.groups[0]["T_pad"]
+        primary = "vmap" if info.devices == 1 else str(("shard", info.devices))
+        alt = str(("shard", 1)) if info.devices == 1 else "vmap"
+        check(sc == {"group": 0, "primary": primary, "alt": alt, "systems": S_exec,
+                     "bit_exact": True}, f"shard_check {sc}")
+        check_captures(f"shard_executor D {info.devices}", info)
+        shards = info.devices + 1 if info.devices > 1 else 2
+        check(launched["fused_cache_step"] == shards * t_pad,
+              f"fused_cache_step launched {launched['fused_cache_step']} times, expected "
+              f"{shards} runners x t_pad {t_pad}")
+        rate = info.events / info.run_s / info.devices
+        alt_rate = info.events / info.shard_check_run_s       # one device either way
+        print(f"shard_executor: the fig08 quick grid ({info.systems} systems, {S_exec} lanes, "
+              f"T {t_pad}, numpy traces) through execute(devices={D}, cross_check_shard=True): "
+              f"shard_check {json.dumps(sc)}; {primary} {rate:.1f} events/s/device "
+              f"(replays {info.run_s:.3f} s, capture {info.compile_s:.3f} s), {alt} "
+              f"{alt_rate:.1f} events/s/device (replays {info.shard_check_run_s:.3f} s); "
+              f"fused_cache_step launches {launched['fused_cache_step']}", flush=True)
+    if cards == 1:
+        print("shard_executor: one card visible, so no run over several cards", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3960,7 +4329,10 @@ def main(argv=None):
     print("flash_attention launches of the family serving paths (counted apart): " +
           ", ".join(f"{p} {n['flash_attention']}" for p, n in family_launched.items()),
           flush=True)
-    phases.run("train", train_path, torch)
+    dense_train = phases.run("train", train_path, torch)
+    parallel_launched = phases.run("parallel", parallel_path, torch, dense_train)
+    print(f"flash_attention launches of phase parallel's prefill (counted apart): "
+          f"{parallel_launched['flash_attention']}", flush=True)
     gen_s = seed_golden_traces()
     launches, _, replay_ms, grid_out = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)
@@ -3969,6 +4341,7 @@ def main(argv=None):
     phases.run("figures", figures_path, torch, grid_out, gen_s)
     phases.run("figures_10_12_15", figures_path, torch, grid_out, gen_s, NEW_FIGURES,
                NEW_FIG_BACKENDS)
+    phases.run("shard_executor", shard_executor_path, torch)
     _, fig12_plain = phases.run("policy_matrix", policy_matrix, torch)
     phases.run("telemetry", telemetry_path, torch, profiles, fig12_plain)
     phases.run("pond", pond_path, torch)

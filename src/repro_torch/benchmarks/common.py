@@ -181,19 +181,26 @@ def engine_row(name: str, result: ExperimentResult,
     }
 
 
-def eager_check(result: ExperimentResult, device="cuda") -> dict:
-    """Graph against eager steps on a figure's grid, cheaply: the
+def eager_check(result: ExperimentResult, device="cuda", shard: bool = False) -> dict:
+    """The engine row's re-run checks on a figure's grid, cheaply: the
     result's points re-planned at ``min(XCHECK_T, their T)`` events and
-    run with ``cross_check_shard`` (its first group once as the primary
-    run, once stepped from the host). Returns ``info.shard_check`` with
-    that T and the primary run's cache-step launches."""
+    run with ``cross_check_eager`` (its first group once as the primary
+    run, once stepped from the host) and, with ``shard``, with
+    ``cross_check_shard`` (once more through the other execution mode, as
+    the reference's fig08 / fig16 check theirs). Returns ``{"eager_check":
+    info.eager_check with that T and the primary run's cache-step
+    launches}`` and, with ``shard``, ``"shard_check"``: the reference's
+    record, its keys and values."""
     pts = [dataclasses.replace(p, T=min(XCHECK_T, p.T)) for p in result.points]
     plan = plan_points(pts, name="eager_check",
                        trace_backend=result.info.trace_backend)
-    info = execute(plan, cross_check_shard=True, assert_compiles=True,
-                   device=device).info
-    return dict(info.shard_check, T=pts[0].T,
-                launches=info.groups[0]["launches"])
+    info = execute(plan, cross_check_eager=True, cross_check_shard=shard,
+                   assert_compiles=True, device=device).info
+    out = {"eager_check": dict(info.eager_check, T=pts[0].T,
+                               launches=info.groups[0]["launches"])}
+    if shard:
+        out["shard_check"] = info.shard_check
+    return out
 
 
 def info_row(name: str, info: RunInfo, **extra) -> dict:
@@ -211,7 +218,7 @@ def checked_info_row(name: str, result: ExperimentResult, device="cuda",
     graph-vs-eager check (:func:`eager_check`; left out with ``eager``
     False) and, for the first ``check_points`` points (none by default, as
     the reference), the per-point check (:func:`engine_check`)."""
-    extra = {"shard_check": eager_check(result, device)} if eager else {}
+    extra = eager_check(result, device) if eager else {}
     if check_points:
         pts = result.points[:check_points]
         extra["check"] = engine_check(pts, [result.metrics_for(p) for p in pts],

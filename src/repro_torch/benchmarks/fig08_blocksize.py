@@ -10,7 +10,9 @@ Block size is a per-system ``FamParams`` value: the planner pads the cache
 to the largest swept geometry (64 B blocks -> 16384 sets), so the whole
 figure is ONE compile group, one batched runner call (one CUDA graph
 capture on the card). The ``fig08_engine`` row holds the per-point
-cross-check and a graph-vs-eager check on a short run of the grid.
+cross-check and, on a short run of the grid, the reference's
+``shard_check`` (the batched mode against ``("shard", 1)``) and the
+graph-vs-eager ``eager_check``.
 """
 from __future__ import annotations
 
@@ -74,13 +76,13 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
 def engine(res, device="cuda", check_points=None, eager: bool = True) -> dict:
     """The ``fig08_engine`` row: the per-point engine check over the first
     ``check_points`` block-64 points (default: all of them, as the
-    reference) and the graph-vs-eager check at ``XCHECK_T`` events (left
-    out with ``eager`` False)."""
+    reference) and the shard and graph-vs-eager checks at ``XCHECK_T``
+    events (left out with ``eager`` False)."""
     check_pts = [p for p in res.points
                  if p.cfg.block_bytes == BLOCK_SIZES[0]][:check_points]
     row = engine_row("fig08_engine", res, check_pts, device)
     if eager:
-        row["shard_check"] = eager_check(res, device)
+        row.update(eager_check(res, device, shard=True))
     return row
 
 

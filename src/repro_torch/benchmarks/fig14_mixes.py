@@ -98,7 +98,7 @@ def engine(res, device="cuda", quick: bool = True, eager: bool = True) -> dict:
     at ``XCHECK_T`` events (left out with ``eager`` False) and, at the
     quick size with device traces, the generation wall-clock of both
     backends."""
-    extra = {"shard_check": eager_check(res, device)} if eager else {}
+    extra = eager_check(res, device) if eager else {}
     if quick and res.info.trace_backend == "device":
         plan = plan_points(res.points, name=NAME, trace_backend="device")
         extra["trace_gen_compare"] = trace_gen_compare(plan, device)

@@ -8,7 +8,9 @@ axes (cache size x workload x {base, wfq2}), 4 nodes, T, rows and
 Cache size is a per-system ``FamParams`` value: the planner pads the cache
 to the largest swept capacity (512 sets at 2048 KB), so the whole figure is
 ONE compile group. The ``fig16_engine`` row holds the per-point
-cross-check and a graph-vs-eager check on a short run of the grid.
+cross-check and, on a short run of the grid, the reference's
+``shard_check`` (the batched mode against ``("shard", 1)``) and the
+graph-vs-eager ``eager_check``.
 """
 from __future__ import annotations
 
@@ -76,13 +78,14 @@ def run_figure(quick: bool = True, trace_backend: str = "device",
 
 def engine(res, device="cuda", check_points=CHECK_POINTS, eager: bool = True) -> dict:
     """The ``fig16_engine`` row: the per-point engine check over the first
-    ``check_points`` 256 KB points and the graph-vs-eager check at
-    ``XCHECK_T`` events (left out with ``eager`` False)."""
+    ``check_points`` 256 KB points and the shard and
+    graph-vs-eager checks at ``XCHECK_T`` events (left out with ``eager``
+    False)."""
     check_pts = [p for p in res.points
                  if p.cfg.dram_cache_bytes == SIZES_KB[0] << 10][:check_points]
     row = engine_row("fig16_engine", res, check_pts, device)
     if eager:
-        row["shard_check"] = eager_check(res, device)
+        row.update(eager_check(res, device, shard=True))
     return row
 
 

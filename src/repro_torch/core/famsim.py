@@ -39,6 +39,7 @@ CPU (the cache step then runs its plain version).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -651,12 +652,16 @@ class GroupRunner:
             self.run_window = _window_fn(self.step, self.pn, self.buf, self.xs)
         else:
             _copy_into(self.buf, carry)
-        if addrs.device.type == "cuda" and not self.eager and self.graph is None:
-            self.graph, self.per_event = _capture(self.step, self.pn, self.buf, self.xs,
-                                                  self.run_window)
-            self.pool_bytes = int(last_graph["pool_bytes"])
-        _drive(self.run_window, None if self.eager else self.graph, self.per_event,
-               self.xs, events, addrs.shape[-1])
+        # the runner's own card is the current device while it captures,
+        # steps and replays (kernel launches and graph streams use it)
+        on_card = addrs.device.type == "cuda"
+        with torch.cuda.device(addrs.device) if on_card else contextlib.nullcontext():
+            if on_card and not self.eager and self.graph is None:
+                self.graph, self.per_event = _capture(self.step, self.pn, self.buf,
+                                                      self.xs, self.run_window)
+                self.pool_bytes = int(last_graph["pool_bytes"])
+            _drive(self.run_window, None if self.eager else self.graph, self.per_event,
+                   self.xs, events, addrs.shape[-1])
         return self.buf
 
 

@@ -41,8 +41,21 @@ which on the card holds the ``compile`` span of its graph capture and
 closes after the replays' synchronize) and ``fetch`` (the copy of the
 metrics to the host); ``RunInfo.spans`` summarizes them.
 
-Not ported here: sharding a group over several devices (``devices > 1``
-raises).
+Sharding (``execute(devices=D)``, the reference's ``("shard", D)``
+mode): each group's system axis is padded up the canonical grid until D
+divides it (:func:`_pad_systems`) and split into D contiguous shards. On
+``cuda`` shard i runs its own ``GroupRunner`` on ``cuda:i`` (its own
+captured graph); on the CPU the D shards are virtual devices, as XLA's
+host device count gives them, and run one after another. Shards run one
+after another on the cards too, and their outputs are joined in order.
+``devices`` defaults to the visible count of the device type
+(``torch.cuda.device_count()`` on ``cuda``, 1 on the CPU); 1 runs the
+plain batched mode (``"vmap"``). The mode is part of the runner key, and
+the cache holds one runner per (key, shard device). ``cross_check_shard``
+re-runs the first group through the other mode (``"vmap"`` against
+``("shard", 1)``) and records the reference's ``shard_check``;
+``cross_check_eager`` re-runs it step by step from the host and records
+``eager_check``.
 """
 from __future__ import annotations
 
@@ -59,7 +72,7 @@ import torch
 from repro_torch.core import famsim
 from repro_torch.core.fam_params import FamParams, stack_params, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.experiments.plan import Plan
+from repro_torch.experiments.plan import Plan, s_bucket
 from repro_torch.experiments.spec import ResolvedPoint
 from repro_torch.kernels.famsim_step import fused_cache_step
 from repro_torch.obs.spans import current_tracer, maybe_span
@@ -108,7 +121,12 @@ class RunInfo:
     #: device trace generation seconds (synchronized; device backend)
     trace_device_s: float = 0.0
     groups: List[dict] = field(default_factory=list)
+    #: ``cross_check_shard``'s record, with the reference's keys
     shard_check: Optional[dict] = None
+    #: seconds of the shard cross-check's re-run (captures apart)
+    shard_check_run_s: float = 0.0
+    #: ``cross_check_eager``'s record: graph (or CPU steps) vs eager steps
+    eager_check: Optional[dict] = None
     #: span summary ``{name: {count, total_s}}`` from the installed
     #: :mod:`repro_torch.obs.spans` tracer, covering this execute call
     #: only; None when no tracer is installed (the default)
@@ -142,6 +160,8 @@ class RunInfo:
             d["xla_compiles"] = self.xla_compiles
         if self.shard_check is not None:
             d["shard_check"] = self.shard_check
+        if self.eager_check is not None:
+            d["eager_check"] = self.eager_check
         if self.spans is not None:
             d["spans"] = self.spans
         return d
@@ -284,44 +304,60 @@ def _mode(dev: torch.device) -> str:
     return "graph" if dev.type == "cuda" else "steps"
 
 
-#: the key's execution mode: one device, the group's systems batched on the
-#: leading axis (the reference's name; its other mode, ``("shard", D)``,
-#: is not ported)
+#: the batched execution mode: one device, the group's systems on the
+#: leading axis (the reference's name); the sharded one is ``("shard", D)``
 _BATCHED = "vmap"
 
-#: ``(runner key, device) -> GroupRunner``, for the life of the process
+#: ``(runner key, shard device, shard index) -> GroupRunner``, for the life
+#: of the process
 _EXEC_CACHE: Dict[Tuple, famsim.GroupRunner] = {}
 
 
-def _exec_key(cfg, S: int, N: int, t_pad: int, *,
+def _exec_key(cfg, S: int, N: int, t_pad: int, mode, *,
               pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
               trace_backend: str = "numpy", policies=None) -> Tuple:
     """The runner key one group resolves to: a pure function of the plan
-    (geometry-free shape + padded allocation + widths + policy tags), the
-    same on every device. Groups with equal keys run one program, so
-    :func:`execute` caches one runner (and on the card its captured graph)
-    per key and device, and every later group with that key replays it."""
+    (geometry-free shape + padded allocation + widths + execution mode +
+    policy tags), the same on every device. Groups with equal keys run one
+    program, so :func:`execute` caches one runner (and on the card its
+    captured graph) per key and shard device, and every later group with
+    that key replays it."""
     policies = policies or DEFAULT_POLICY_SET
     return (cfg.geometry_free_shape(), pad_sets or cfg.num_sets,
-            pad_ways or cfg.cache_ways, S, N, t_pad, _BATCHED,
+            pad_ways or cfg.cache_ways, S, N, t_pad, mode,
             trace_backend == "device", policies.compile_tags())
 
 
+def _exec_mode(D: int):
+    return ("shard", D) if D > 1 else _BATCHED
+
+
+def _visible_devices(device) -> int:
+    """The reference's ``len(jax.devices())``: the cards on ``cuda`` (1
+    where there is none: planning touches no device), one device on the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
 def group_cache_keys(plan: Plan, *, devices: Optional[int] = None,
-                     trace_backend: Optional[str] = None) -> Tuple[Tuple, ...]:
+                     trace_backend: Optional[str] = None,
+                     device="cuda") -> Tuple[Tuple, ...]:
     """The runner key each group of ``plan`` would resolve to under
-    :func:`execute`, without running anything: two groups with equal keys
-    share one cached runner, so a caller batching repeated sweeps
-    (:mod:`repro_torch.search`) can tell beforehand which groups replay a
-    cached graph and which capture one."""
+    :func:`execute` on ``devices`` devices (default: those visible on
+    ``device``; an explicit count needs no device), without running
+    anything: two groups with equal keys share one cached runner, so a
+    caller batching repeated sweeps (:mod:`repro_torch.search`) can tell
+    beforehand which groups replay a cached graph and which capture one."""
     backend = validate_backend(trace_backend or plan.trace_backend)
-    _devices(devices)
+    D = _visible_devices(device) if devices is None else devices
     keys = []
     for g in plan.groups:
         rep = plan.points[g.indices[0]]
         keys.append(_exec_key(
-            rep.cfg, len(_pad_systems(g.indices, g.s_pad)),
-            g.key.num_nodes, g.t_pad, pad_sets=g.pad_sets,
+            rep.cfg, len(_pad_systems(g.indices, g.s_pad, D)),
+            g.key.num_nodes, g.t_pad, _exec_mode(D), pad_sets=g.pad_sets,
             pad_ways=g.pad_ways, trace_backend=backend,
             policies=rep.policy_set()))
     return tuple(keys)
@@ -378,20 +414,80 @@ def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
                  "launches": fused_cache_step.launches - launches}
 
 
-def _pad_systems(idxs: Sequence[int], s_pad: int) -> List[int]:
-    """Pad the group's point-index list to its canonical S width; padded
-    lanes repeat the last member (inert; dropped on the way out)."""
+def _shard_data(data: _GroupData, D: int) -> List[_GroupData]:
+    """The group's inputs split into D contiguous lane shards."""
+    S = len(data.t_true)
+    w = S // D
+    cut = lambda x, i: x[i * w:(i + 1) * w]
+    out = []
+    for i in range(D):
+        inputs = tuple(type(x)(*(cut(f, i) for f in x)) if isinstance(x, tuple)
+                       else cut(x, i) for x in data.inputs)
+        out.append(_GroupData(tree_map(lambda t: cut(t, i), data.params), inputs,
+                              cut(data.t_true, i), cut(data.warm_start, i)))
+    return out
+
+
+def _shard_devices(dev: torch.device, mode) -> List[torch.device]:
+    """The device of each shard: ``dev`` for one shard, ``cuda:i`` for
+    shard i of several on the cards, the CPU for every virtual shard on
+    the CPU."""
+    D = 1 if mode == _BATCHED else mode[1]
+    if D == 1 or dev.type != "cuda":
+        return [dev] * D
+    if D > torch.cuda.device_count():
+        raise ValueError(f"devices={D}: only {torch.cuda.device_count()} CUDA "
+                         "device(s) visible")
+    return [torch.device("cuda", i) for i in range(D)]
+
+
+def _run_mode(data: _GroupData, key, mode, rep, g, dev: torch.device,
+              trace_backend: str):
+    """One group through ``mode``: the batched runner, or one runner a
+    shard (cached per shard device), outputs joined in lane order.
+    Returns (metrics, accounting summed over the shards, whether every
+    runner came from the cache)."""
+    devs = _shard_devices(dev, mode)
+    shards = [data] if len(devs) == 1 else _shard_data(data, len(devs))
+    outs, accts, hits = [], [], []
+    for i, (shard, sdev) in enumerate(zip(shards, devs)):
+        ckey = (key, sdev, i)
+        run = _EXEC_CACHE.get(ckey)
+        hits.append(run is not None)
+        if run is None:
+            run = famsim.GroupRunner(rep.cfg, g.key.num_nodes, g.pad_sets, g.pad_ways,
+                                     policies=rep.policy_set())
+        out, acct = _run_group(shard, run, sdev, g.t_pad, trace_backend)
+        # cached once it has run, so a failed first run leaves nothing
+        _EXEC_CACHE[ckey] = run
+        outs.append(out)
+        accts.append(acct)
+    out = outs[0] if len(outs) == 1 else \
+        {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    acct = {"captured": any(a["captured"] for a in accts)}
+    for k in ("capture_s", "run_s", "trace_device_s", "launches"):
+        acct[k] = sum(a[k] for a in accts)
+    return out, acct, all(hits)
+
+
+def _pad_systems(idxs: Sequence[int], s_pad: int, D: int = 1) -> List[int]:
+    """Pad the group's point-index list to the canonical S width, then,
+    when sharding, further up the canonical grid until the device count
+    divides it (bounded; else the plain next multiple of D). Padded lanes
+    repeat the last member (inert; dropped on the way out)."""
     idxs = list(idxs)
-    return idxs + [idxs[-1]] * (max(s_pad, len(idxs)) - len(idxs))
-
-
-def _devices(devices: Optional[int]) -> int:
-    D = 1 if devices is None else devices
-    if D != 1:
-        raise NotImplementedError(
-            f"devices={devices}: sharding a group over several devices is "
-            "not ported (the port runs each group on one device)")
-    return D
+    target = max(s_pad, len(idxs))
+    D = max(D, 1)
+    if target % D:
+        cand = target
+        for _ in range(8):                    # bounded: <= ~16x growth
+            cand = s_bucket(cand + 1)
+            if cand % D == 0:
+                break
+        else:
+            cand = -(-target // D) * D        # no canonical width fits D
+        target = cand
+    return idxs + [idxs[-1]] * (target - len(idxs))
 
 
 # ---------------------------------------------------------------------------
@@ -403,17 +499,23 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             cross_check_shard: bool = False,
             trace_backend: Optional[str] = None,
             assert_compiles: bool = False,
-            device="cuda") -> ExperimentResult:
+            device="cuda", cross_check_eager: bool = False) -> ExperimentResult:
     """Run every point of ``plan`` on ``device``; one runner call per
-    compile group.
+    compile group (one a shard when sharded).
 
-    devices: only 1 (the default) is ported; more raises.
+    devices: shard each group's systems over this many devices (default:
+        all visible on ``device``); 1 runs the plain batched mode. On
+        ``cuda`` more than the visible cards raises.
     overlap: overlap host trace generation for group i+1 with the
         simulation of group i (numpy backend only).
-    cross_check_shard: re-run the first group through the port's other
-        execution path — the eager steps (``GroupRunner(eager=True)``) where
-        the primary path replays a CUDA graph — and record whether the
-        metrics are bit-exact in ``info.shard_check``.
+    cross_check_shard: re-run the first group through the other mode
+        (``("shard", 1)`` against ``"vmap"``, ``"vmap"`` against a sharded
+        run) and record whether the metrics are bit-exact in
+        ``info.shard_check``, with the reference's keys.
+    cross_check_eager: re-run the first group step by step from the host
+        (``GroupRunner(eager=True)``, never cached) and record whether the
+        metrics equal the primary run's (a replayed CUDA graph on the card)
+        bit for bit in ``info.eager_check``.
     trace_backend: override ``plan.trace_backend`` ("device"/"numpy").
     assert_compiles: assert the capture accounting: one lookup of the
         runner cache a group (``exec_cache_hits + exec_cache_misses ==
@@ -422,17 +524,22 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
     """
     t_start = time.perf_counter()
     backend = validate_backend(trace_backend or plan.trace_backend)
-    D = _devices(devices)
     dev = resolve_device(device)
+    D = _visible_devices(dev) if devices is None else devices
+    if D < 1:
+        raise ValueError(f"devices={devices}: at least one")
+    mode = _exec_mode(D)
     info = RunInfo(planned_groups=plan.num_groups, devices=D,
                    trace_backend=backend)
     tracer = current_tracer()
     span_mark = tracer.mark() if tracer is not None else 0
-    exec_idxs = [_pad_systems(g.indices, g.s_pad) for g in plan.groups]
+    exec_idxs = [_pad_systems(g.indices, g.s_pad, D) for g in plan.groups]
 
-    keys = group_cache_keys(plan, trace_backend=backend)
-    # the groups whose runner an earlier execute left in the cache
-    info.groups_reused = sum((k, dev) in _EXEC_CACHE for k in keys)
+    keys = group_cache_keys(plan, devices=D, trace_backend=backend)
+    # the groups whose runners an earlier execute left in the cache
+    devs = _shard_devices(dev, mode)
+    info.groups_reused = sum(all((k, d, i) in _EXEC_CACHE for i, d in enumerate(devs))
+                             for k in keys)
 
     def staged_prepare(gi_):
         with maybe_span("trace_stage", group=gi_):
@@ -463,19 +570,12 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             S_exec = len(exec_idxs[gi])
             N, t_pad = g.key.num_nodes, g.t_pad
             rep = plan.points[g.indices[0]]
-            run = _EXEC_CACHE.get((keys[gi], dev))
-            hit = run is not None
-            info.exec_cache_hits += hit
-            info.exec_cache_misses += not hit
-            if not hit:
-                run = famsim.GroupRunner(rep.cfg, N, g.pad_sets, g.pad_ways,
-                                         policies=rep.policy_set())
             with maybe_span("run", group=gi, key_digest=_key_digest(keys[gi]),
                             S=S_exec, N=N, T_pad=t_pad):
-                out, acct = _run_group(data, run, dev, t_pad, backend)
-            # cached once it has run, so a failed first run leaves nothing
-            _EXEC_CACHE[(keys[gi], dev)] = run
-            if gi == 0 and cross_check_shard:
+                out, acct, hit = _run_mode(data, keys[gi], mode, rep, g, dev, backend)
+            info.exec_cache_hits += hit
+            info.exec_cache_misses += not hit
+            if gi == 0 and (cross_check_shard or cross_check_eager):
                 group0 = (data, out)
 
             true_events = sum(len(plan.points[i].workloads) *
@@ -519,7 +619,10 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
                 "capture(s) and one lookup a group", info.groups)
 
     if cross_check_shard and plan.groups:
-        info.shard_check = _eager_cross_check(plan, *group0, exec_idxs[0],
+        info.shard_check, info.shard_check_run_s = _shard_cross_check(
+            plan, *group0, exec_idxs[0], mode, dev, backend)
+    if cross_check_eager and plan.groups:
+        info.eager_check = _eager_cross_check(plan, *group0, exec_idxs[0],
                                               dev, backend)
     if tracer is not None:
         # summarized after the cross-check, so its spans are included
@@ -530,6 +633,26 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             t_pads[i] = g.t_pad
     return ExperimentResult(plan.points, results, info,  # type: ignore[arg-type]
                             t_pads=t_pads)
+
+
+def _shard_cross_check(plan: Plan, data: _GroupData,
+                       primary_out: Dict[str, np.ndarray], idxs: Sequence[int],
+                       primary_mode, dev: torch.device, trace_backend: str):
+    """Compare the first group's primary output with a run through the
+    other mode (``("shard", 1)`` against ``"vmap"``, ``"vmap"`` against a
+    sharded primary), bit for bit. Returns (the reference's record, the
+    re-run's seconds without captures)."""
+    g = plan.groups[0]
+    rep = plan.points[g.indices[0]]
+    S_exec = len(idxs)
+    alt_mode = _BATCHED if primary_mode != _BATCHED else ("shard", 1)
+    key = _exec_key(rep.cfg, S_exec, g.key.num_nodes, g.t_pad, alt_mode,
+                    pad_sets=g.pad_sets, pad_ways=g.pad_ways,
+                    trace_backend=trace_backend, policies=rep.policy_set())
+    alt, acct, _ = _run_mode(data, key, alt_mode, rep, g, dev, trace_backend)
+    bit_exact = all(np.array_equal(primary_out[k], alt[k]) for k in primary_out)
+    return ({"group": 0, "primary": str(primary_mode), "alt": str(alt_mode),
+             "systems": S_exec, "bit_exact": bool(bit_exact)}, acct["run_s"])
 
 
 def _eager_cross_check(plan: Plan, data: _GroupData,

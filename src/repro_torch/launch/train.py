@@ -1,10 +1,16 @@
 """Training launcher: ``--arch <id>`` -> a training run through the
 port's train step, trainer and checkpointer.
 
-Counterpart of ``repro.launch.train`` on one device. Weights are random
-from seed 0 and the data is :class:`repro_torch.data.pipeline.SyntheticLM`;
-runs on the card unless ``--device cpu``. ``--production`` and
-``--multi-pod`` (the reference's pod meshes) wait for ``parallel/``.
+Counterpart of ``repro.launch.train``. The model is built with the
+reference's parallel context: :func:`repro_torch.parallel.single_device_context`
+on ``--device`` (a one-rank process group), so MoE layers take the
+expert-parallel ``moe_sharded`` as the reference's launcher does; with
+``--production`` / ``--multi-pod`` a context over the 16 x 16 / 2 x 16 x
+16 production mesh, which needs a ``torch.distributed`` job of that many
+ranks (else ``RuntimeError``, as the reference's). Weights are random from
+seed 0 and the data is :class:`repro_torch.data.pipeline.SyntheticLM`;
+runs on the card unless ``--device cpu``. The first line printed names
+the mesh.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m-smoke \\
@@ -37,25 +43,29 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--production", action="store_true",
-                    help="16x16 production mesh (not ported)")
-    ap.add_argument("--multi-pod", action="store_true", help="not ported")
+                    help="16x16 production mesh (requires 256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
-    if args.production or args.multi_pod:
-        raise NotImplementedError("--production / --multi-pod need the pod meshes of "
-                                  "parallel/ (ROADMAP A4 \"Parallelism\")")
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import ParallelContext, single_device_context
     from repro_torch.train.steps import build_train_step, init_train_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_config(args.arch)
-    model = build_model(cfg, device=args.device)
+    if args.production:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        ctx = ParallelContext(mesh=mesh, dp_axes=("pod", "data"))
+    else:
+        ctx = single_device_context(device=args.device)
+    model = build_model(cfg, ctx, device=args.device)
     n = cfg.param_count()
-    print(f"arch={cfg.name} params={n/1e6:.1f}M device={model.device} "
-          f"steps={args.steps}")
+    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={dict(ctx.mesh.shape)} "
+          f"device={model.device} steps={args.steps}")
 
     state = init_train_state(model, 0, optimizer=args.optimizer)
     step_fn = build_train_step(

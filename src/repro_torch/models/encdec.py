@@ -21,14 +21,17 @@ every family's decode does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import attn_options, checkpointed
 
 Cache = Dict[str, torch.Tensor]
 
@@ -72,19 +75,35 @@ def init_encdec(gen, cfg: ModelConfig, device=None) -> EncDec:
     return EncDec(cfg, gen, device)
 
 
+def _layer_runner(fn, ctx):
+    """``fn`` under ``torch.utils.checkpoint`` when grad mode is on and
+    the reference would remat the layer (``ctx is None or ctx.remat ==
+    "layer"``), else ``fn``."""
+    if torch.is_grad_enabled() and checkpointed(ctx):
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    return fn
+
+
+def _enc_layer(cfg: ModelConfig, lp: EncoderLayer, x, backend: str):
+    h = L.apply_norm(cfg, lp.norm1, x)
+    q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
+    o = attn_lib.attend(cfg, q, k, v, causal=False, backend=backend)
+    x = x + attn_lib.out_proj(cfg, lp.attn, o)
+    h = L.apply_norm(cfg, lp.norm2, x)
+    return x + L.apply_mlp(cfg, lp.mlp, h)
+
+
 def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor, *,
-           backend: str = "cuda") -> torch.Tensor:
+           backend: str = "cuda", ctx=None) -> torch.Tensor:
     """frames: (B, encoder_seq, d_model) precomputed embeddings -> the
-    encoder's normed output in the compute type."""
+    encoder's normed output in the compute type. Under grad mode each
+    layer is checkpointed unless ``ctx.remat`` is ``"none"``."""
     dt = L.torch_dtype(cfg.dtype)
     x = frames.to(dt) + params.enc_pos.to(dt)
+    run = _layer_runner(_enc_layer, ctx)
     for lp in params.encoder:
-        h = L.apply_norm(cfg, lp.norm1, x)
-        q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
-        o = attn_lib.attend(cfg, q, k, v, causal=False, backend=backend)
-        x = x + attn_lib.out_proj(cfg, lp.attn, o)
-        h = L.apply_norm(cfg, lp.norm2, x)
-        x = x + L.apply_mlp(cfg, lp.mlp, h)
+        x = run(cfg, lp, x, backend)
     return L.apply_norm(cfg, params.enc_norm, x)
 
 
@@ -100,17 +119,26 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
 
 
+def _dec_layer(cfg: ModelConfig, lp: DecoderLayer, x, enc_out, positions, chunk: int,
+               schedule: str, backend: str):
+    h = L.apply_norm(cfg, lp.norm1, x)
+    x = x + attn_lib.self_attention(cfg, lp.attn, h, positions, chunk=chunk,
+                                    schedule=schedule, backend=backend)
+    return _cross_and_mlp(cfg, lp, x, attn_lib.kv_proj(cfg, lp.xattn, enc_out), backend)
+
+
 def forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
-            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda"):
-    """Teacher-forced decoder forward -> (logits (B, S, V), aux = 0)."""
-    enc_out = encode(cfg, params, frames, backend=backend)
+            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda", ctx=None):
+    """Teacher-forced decoder forward -> (logits (B, S, V), aux = 0).
+    Under grad mode each layer is checkpointed unless ``ctx.remat`` is
+    ``"none"``; a context also sets the attention's chunk and schedule."""
+    chunk, schedule = attn_options(ctx, chunk, "rect")
+    enc_out = encode(cfg, params, frames, backend=backend, ctx=ctx)
     positions = _positions(tokens)
     x = L.embed_tokens(cfg, params.embed, tokens, positions)
+    run = _layer_runner(_dec_layer, ctx)
     for lp in params.decoder:
-        h = L.apply_norm(cfg, lp.norm1, x)
-        x = x + attn_lib.self_attention(cfg, lp.attn, h, positions, chunk=chunk,
-                                        backend=backend)
-        x = _cross_and_mlp(cfg, lp, x, attn_lib.kv_proj(cfg, lp.xattn, enc_out), backend)
+        x = run(cfg, lp, x, enc_out, positions, chunk, schedule, backend)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x), torch.zeros((), dtype=torch.float32,
                                                         device=x.device)
@@ -118,10 +146,11 @@ def forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
-            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda"):
+            frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda", ctx=None):
     """(last logits (B, V), cache with the self K/V of S positions and the
     cross K/V of the encoder's output)."""
-    enc_out = encode(cfg, params, frames, backend=backend)
+    chunk, schedule = attn_options(ctx, chunk, "rect")
+    enc_out = encode(cfg, params, frames, backend=backend, ctx=ctx)
     positions = _positions(tokens)
     x = L.embed_tokens(cfg, params.embed, tokens, positions)
     dt = L.torch_dtype(cfg.dtype)
@@ -129,7 +158,8 @@ def prefill(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     for lp in params.decoder:
         h = L.apply_norm(cfg, lp.norm1, x)
         q, k, v = attn_lib.qkv_proj(cfg, lp.attn, h)
-        o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, backend=backend)
+        o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, schedule=schedule,
+                            backend=backend)
         x = x + attn_lib.out_proj(cfg, lp.attn, o)
         ek, ev = attn_lib.kv_proj(cfg, lp.xattn, enc_out)
         x = _cross_and_mlp(cfg, lp, x, (ek, ev), backend)

@@ -19,11 +19,18 @@ the hand-written kernel (its plain version on CPU tensors); ``"torch"``
 runs the reference's chunked attention in torch on any device. ``loss``
 runs the ``"torch"`` attention whatever the backend: the kernel has no
 backward.
+
+``ctx`` (``Model.ctx``) is the model's parallel context
+(:class:`repro_torch.parallel.ParallelContext`, or None), passed down as
+the reference passes it: MoE layers take ``moe_sharded`` under a context
+with ``use_ep``, attention its chunk and schedule, training its ``remat``.
+:func:`batch_specs` and :func:`cache_specs` give the partition specs of a
+batch and a cache by their keys (``model_zoo.py:198-223``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +39,7 @@ from torch import nn
 from repro_torch.configs.base import KERNEL_BACKENDS, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer, xlstm, zamba
+from repro_torch.parallel.sharding import ParallelContext
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
@@ -53,6 +61,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     kernel_backend: str = "cuda"
+    ctx: Optional[ParallelContext] = None
 
     # -- construction -------------------------------------------------------
     def init(self, seed) -> nn.Module:
@@ -70,17 +79,17 @@ class Model:
         needs ``frames``), differentiable in ``params``. Attention runs
         through the ``"torch"`` backend, as the reference trains through
         its jnp attention."""
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         if c.xlstm is not None:
-            logits, aux, _ = xlstm.xlstm_forward(c, params, batch["tokens"])
+            logits, aux, _ = xlstm.xlstm_forward(c, params, batch["tokens"], ctx=ctx)
         elif c.ssm is not None:
             logits, aux, _ = zamba.zamba_forward(c, params, batch["tokens"],
-                                                 backend="torch")
+                                                 backend="torch", ctx=ctx)
         elif c.is_encoder_decoder:
             logits, aux = encdec.forward(c, params, batch["tokens"], batch["frames"],
-                                         backend="torch")
+                                         backend="torch", ctx=ctx)
         else:
-            return transformer.lm_loss(c, params, batch)
+            return transformer.lm_loss(c, params, batch, ctx=ctx)
         labels = batch["labels"].to(torch.int64)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         xent = -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
@@ -91,15 +100,16 @@ class Model:
                 ) -> Tuple[torch.Tensor, Any]:
         """(last logits (B, V), cache) of ``batch["tokens"]`` (and
         ``positions`` for M-RoPE, ``frames`` for the audio family)."""
-        c, be = self.cfg, self.kernel_backend
+        c, be, ctx = self.cfg, self.kernel_backend, self.ctx
         if c.xlstm is not None:
-            return xlstm.xlstm_prefill(c, params, batch["tokens"])
+            return xlstm.xlstm_prefill(c, params, batch["tokens"], ctx=ctx)
         if c.ssm is not None:
-            return zamba.zamba_prefill(c, params, batch["tokens"], backend=be)
+            return zamba.zamba_prefill(c, params, batch["tokens"], backend=be, ctx=ctx)
         if c.is_encoder_decoder:
-            return encdec.prefill(c, params, batch["tokens"], batch["frames"], backend=be)
+            return encdec.prefill(c, params, batch["tokens"], batch["frames"], backend=be,
+                                  ctx=ctx)
         return transformer.prefill(c, params, batch["tokens"], batch.get("positions"),
-                                   backend=be)
+                                   backend=be, ctx=ctx)
 
     def decode(self, params: nn.Module, cache, batch) -> Tuple[torch.Tensor, Any]:
         """batch: ``tokens`` (B, 1) and ``index`` (an int: tokens already
@@ -107,13 +117,13 @@ class Model:
         c = self.cfg
         tokens, index = batch["tokens"], int(batch["index"])
         if c.xlstm is not None:
-            return xlstm.xlstm_decode_step(c, params, cache, tokens, index)
+            return xlstm.xlstm_decode_step(c, params, cache, tokens, index, ctx=self.ctx)
         if c.ssm is not None:
             return zamba.zamba_decode_step(c, params, cache, tokens, index)
         if c.is_encoder_decoder:
             return encdec.decode_step(c, params, cache, tokens, index)
         return transformer.decode_step(c, params, cache, tokens, index,
-                                       batch.get("positions"))
+                                       batch.get("positions"), ctx=self.ctx)
 
     def init_cache(self, batch: int, max_len: int):
         c, dev = self.cfg, self.device
@@ -130,14 +140,74 @@ class Model:
         return cache
 
 
-def build_model(cfg: ModelConfig, device="cuda", kernel_backend: str = "cuda") -> Model:
+def build_model(cfg: ModelConfig, ctx: Optional[ParallelContext] = None, device="cuda",
+                kernel_backend: str = "cuda") -> Model:
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; expected one of "
                          f"{FAMILIES}")
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel backend {kernel_backend!r}; expected one "
                          f"of {KERNEL_BACKENDS}")
-    return Model(cfg, resolve_device(device), kernel_backend)
+    return Model(cfg, resolve_device(device), kernel_backend, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis annotation for batch / cache trees (the reference's
+# launch/dryrun reads these)
+# ---------------------------------------------------------------------------
+
+_BATCH_LOGICAL = {
+    "tokens": ("batch", None), "labels": ("batch", None),
+    "mask": ("batch", None), "frames": ("batch", None, None),
+    "index": (),
+}
+_CACHE_LOGICAL = {
+    "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "xk": ("layers", "batch", None, "kv_heads", None),
+    "xv": ("layers", "batch", None, "kv_heads", None),
+    "attn_k": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "attn_v": ("layers", "batch", "kv_seq", "kv_heads", None),
+    "ssm": ("layers", "batch", "q_heads", None, None),
+    "conv": ("layers", "batch", None, "inner"),
+    "C": ("layers", "batch", None, None, None),
+    "n": ("layers", "batch", None, None),
+    "m": ("layers", "batch", None),
+    "c": ("layers", "batch", None, None),
+    "h": ("layers", "batch", None, None),
+}
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(k, v)
+            for k, v in tree.items()}
+
+
+def batch_specs(ctx: ParallelContext, struct, is_mrope: bool = False):
+    """Partition specs of a batch (a dict of tensors or anything with
+    ``shape``), by key."""
+    def f(key, leaf):
+        nd = len(leaf.shape)
+        if key == "positions":
+            logical = (None, "batch", None) if nd == 3 else ("batch", None)
+        else:
+            logical = _BATCH_LOGICAL.get(key, (None,) * nd)
+        if len(logical) != nd:
+            logical = (None,) * nd
+        return ctx.spec_for(tuple(leaf.shape), logical)
+    return _map_leaves(f, struct)
+
+
+def cache_specs(ctx: ParallelContext, struct):
+    """Partition specs of a cache (nested dicts of tensors), by key."""
+    def f(key, leaf):
+        nd = len(leaf.shape)
+        logical = _CACHE_LOGICAL.get(key, (None,) * nd)
+        # slstm/mlstm "m"/"n" collide across dicts; fix rank mismatches
+        if len(logical) != nd:
+            logical = ("layers", "batch") + (None,) * (nd - 2)
+        return ctx.spec_for(tuple(leaf.shape), logical)
+    return _map_leaves(f, struct)
 
 
 SEQ_KEYS = ("k", "v", "attn_k", "attn_v")   # caches that grow along axis 2

@@ -1,7 +1,7 @@
 """Mixture-of-Experts: routing, the load-balance loss and the dense
 reference combine.
 
-Counterpart of ``repro.models.moe`` (its ``moe.py:30-87,209-216``):
+Counterpart of ``repro.models.moe`` (its ``moe.py:30-216``):
 
 * :class:`MoE` (:func:`init_moe`): ``router`` (d_model, E), ``w_gate`` /
   ``w_up`` (E, d_model, d_ff) and ``w_down`` (E, d_ff, d_model), the
@@ -14,13 +14,29 @@ Counterpart of ``repro.models.moe`` (its ``moe.py:30-87,209-216``):
   expert first, as ``jax.lax.top_k`` does;
 * :func:`moe_dense`: every expert for every token, combined by the routing
   weights through a one-hot, as the reference's single-device path;
-* :func:`moe_apply`: the entry point. The expert-parallel path
-  (``moe_sharded`` and ``_rank_within_expert``) waits for ``parallel/``,
-  so a parallel context that asks for it raises.
+* :func:`moe_sharded` (``moe.py:90-206``): expert parallelism over the
+  context's ``ep_axis``. Each rank takes its batch slice (``dp_axes``) and
+  its experts (``ep_axis``), splits its tokens into chunks of at most
+  ``moe_token_chunk``, and per chunk ranks each (token, choice) slot
+  within its expert (:func:`_rank_within_expert`), drops the slots past
+  the expert's capacity, sends the kept tokens to their expert's rank in
+  an ``(M, E_loc, C, d)`` buffer by ``all_to_all``, runs its experts'
+  FFNs and sends the results back for the weighted combine; the batch
+  slices are gathered over ``dp_axes`` at the end. The capacity is the
+  reference's ``max(8, ceil(chunk * k * capacity_factor / E))`` in
+  float64. It falls back to the dense path when E does not divide the
+  axis, and replicates the batch when B does not divide ``dp_axes``;
+* :func:`moe_apply`: the entry point; a context with ``use_ep`` takes
+  :func:`moe_sharded`, none (or ``use_ep`` off) :func:`moe_dense`.
+
+Inputs are the whole batch and the whole parameters on every rank (the
+model runs replicated); the expert dispatch is the only sharded step.
+:func:`dispatch_record` collects each dispatch's slot and drop counts.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,13 +99,150 @@ def moe_dense(cfg: ModelConfig, p: MoE, x: torch.Tensor
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# Sharded EP implementation
+# ---------------------------------------------------------------------------
+
+#: the active :func:`dispatch_record` list, or None
+_record: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def dispatch_record():
+    """Collect one ``{"slots", "dropped", "capacity", "experts_rows"}``
+    dict per dispatched chunk while active (``dropped`` a device tensor:
+    nothing synchronizes). Under checkpointing a recomputed forward
+    records again."""
+    global _record
+    outer, _record = _record, []
+    try:
+        yield _record
+    finally:
+        _record = outer
+
+
+def _rank_within_expert(ids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """ids: (T,) expert id per token-slot -> rank of each slot within its
+    expert's arrival order (stable), int32."""
+    T = ids.shape[0]
+    sorted_ids, order = torch.sort(ids, stable=True)
+    first_occ = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    rank_sorted = torch.arange(T, device=ids.device) - first_occ
+    rank = torch.zeros(T, dtype=torch.int32, device=ids.device)
+    rank[order] = rank_sorted.to(torch.int32)
+    return rank
+
+
+def _expert_ffn(cfg: ModelConfig, w_gate, w_up, w_down, xs: torch.Tensor) -> torch.Tensor:
+    """xs: (E, C, d) tokens grouped per (local) expert."""
+    g = torch.einsum("ecd,edf->ecf", xs, w_gate)
+    u = torch.einsum("ecd,edf->ecf", xs, w_up)
+    act = F.silu(g) if cfg.activation == "swiglu" else F.gelu(g, approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", act * u, w_down)
+
+
+def _dispatch_compute_local(cfg: ModelConfig, mesh, ep_axis: str, capacity: int,
+                            x_flat, top_w, top_i, w_gate, w_up, w_down):
+    """One chunk on this rank. x_flat: (T, d); top_*: (T, k); w_*: this
+    rank's experts (E_loc, d, f) / (E_loc, f, d)."""
+    from repro_torch.parallel.compat import all_to_all, axis_size
+    m = cfg.moe
+    T, d = x_flat.shape
+    k = m.top_k
+    M = axis_size(mesh, ep_axis)
+    E_loc = m.num_experts // M
+    C = capacity
+    dt = x_flat.dtype
+
+    ids = top_i.reshape(T * k).to(torch.int32)
+    rank = _rank_within_expert(ids, m.num_experts)
+    keep = rank < C
+    rank_c = torch.clamp(rank, max=C - 1).long()
+    tok = torch.arange(T, device=x_flat.device).repeat_interleave(k)
+    if _record is not None:
+        _record.append({"slots": T * k, "dropped": (~keep).sum(), "capacity": C,
+                        "experts_rows": m.num_experts * C})
+
+    # scatter tokens into the (dest rank, local expert, slot) send buffer;
+    # a dropped slot adds exact zeros at its expert's last slot
+    dest = (ids // E_loc).long()
+    le = (ids % E_loc).long()
+    vals = x_flat[tok] * keep[:, None].to(dt)
+    send = torch.zeros((M, E_loc, C, d), dtype=dt, device=x_flat.device)
+    send = send.index_put((dest, le, rank_c), vals, accumulate=True)
+
+    # tokens travel to their expert's rank
+    recv = all_to_all(send, mesh, ep_axis)                      # (M_src, E_loc, C, d)
+    recv = recv.transpose(0, 1).reshape(E_loc, M * C, d)
+
+    out = _expert_ffn(cfg, w_gate, w_up, w_down, recv)          # (E_loc, M*C, d)
+
+    # send results home
+    back = out.reshape(E_loc, M, C, d).transpose(0, 1)          # (M_src, E_loc, C, d)
+    got = all_to_all(back, mesh, ep_axis)                       # (M_dest, E_loc, C, d)
+
+    # combine: gather each slot's result, weight, sum over k
+    slot_out = got[dest, le, rank_c]                            # (T*k, d)
+    w = top_w.reshape(T * k).to(dt) * keep.to(dt)
+    return (slot_out * w[:, None]).reshape(T, k, d).sum(dim=1)
+
+
+def moe_sharded(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, mesh, dp_axes,
+                ep_axis: str, capacity_factor: float = 1.25,
+                token_chunk: int = 8192) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EP MoE. x: (B, S, d), the whole batch on every rank. Experts are
+    split over ``ep_axis``, the batch over ``dp_axes``; falls back to the
+    dense path when the experts do not divide the axis. Returns the whole
+    (B, S, d) output on every rank and the aux loss."""
+    from repro_torch.parallel.compat import all_gather, axis_index, axis_size
+    m = cfg.moe
+    M = mesh.shape.get(ep_axis, 1)
+    if m.num_experts % max(M, 1) != 0:
+        return moe_dense(cfg, p, x)
+
+    top_w, top_i, aux = route(cfg, p, x)
+    B, S, d = x.shape
+    dt = x.dtype
+    dp_axes = tuple(a for a in dp_axes if a in mesh.shape)
+    dp_size = axis_size(mesh, dp_axes)
+    if B % max(dp_size, 1) != 0:   # e.g. batch=1 long-context: replicate batch
+        dp_axes, dp_size = (), 1
+    T_loc = max((B + dp_size - 1) // dp_size * S, 1)
+    chunk = min(token_chunk, T_loc)
+    n_chunks = max(T_loc // chunk, 1)
+    chunk = T_loc // n_chunks
+    capacity = int(max(8, np.ceil(chunk * m.top_k * capacity_factor / m.num_experts)))
+    if chunk * n_chunks != T_loc:
+        raise ValueError(f"{T_loc} local tokens do not split into {n_chunks} chunks "
+                         f"of {chunk}")
+    Bl = B // dp_size
+    b0 = axis_index(mesh, dp_axes) * Bl
+    E_loc = m.num_experts // M
+    e0 = axis_index(mesh, ep_axis) * E_loc
+    wg, wu, wd = (w[e0:e0 + E_loc].to(dt) for w in (p.w_gate, p.w_up, p.w_down))
+
+    xf = x[b0:b0 + Bl].reshape(Bl * S, d)
+    twf = top_w[b0:b0 + Bl].reshape(Bl * S, m.top_k).to(dt)
+    tif = top_i[b0:b0 + Bl].reshape(Bl * S, m.top_k)
+    ys = [_dispatch_compute_local(cfg, mesh, ep_axis, capacity,
+                                  xf[i * chunk:(i + 1) * chunk],
+                                  twf[i * chunk:(i + 1) * chunk],
+                                  tif[i * chunk:(i + 1) * chunk], wg, wu, wd)
+          for i in range(n_chunks)]
+    y = (ys[0] if n_chunks == 1 else torch.cat(ys)).reshape(Bl, S, d)
+    # the batch slices back in order, the last dp axis the minor one
+    for a in reversed(dp_axes):
+        y = all_gather(y, mesh, a)
+    return y, aux
+
+
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, parallel=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Entry point: the dense path, the reference's route without a
-    parallel context. A context with ``use_ep`` (expert parallelism) would
-    take ``moe_sharded``, which is not ported."""
-    if parallel is not None and getattr(parallel, "use_ep", False):
-        raise NotImplementedError(
-            "expert-parallel MoE (moe_sharded, _rank_within_expert) waits for "
-            "parallel/ (ROADMAP A4 \"Parallelism\")")
+    """Entry point: the sharded path under a parallel context with
+    ``use_ep``, else the dense path."""
+    if parallel is not None and parallel.use_ep:
+        return moe_sharded(cfg, p, x, mesh=parallel.mesh, dp_axes=parallel.dp_axes,
+                           ep_axis=parallel.ep_axis,
+                           capacity_factor=parallel.capacity_factor,
+                           token_chunk=parallel.moe_token_chunk)
     return moe_dense(cfg, p, x)

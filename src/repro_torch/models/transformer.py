@@ -17,8 +17,14 @@ takes their first plane.
 summed over the layers (0 for dense layers). It takes no stance on
 gradients: under grad mode each layer runs inside
 ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` on the
-scan body, the reference's ``remat="layer"`` without a parallel context),
-so the backward recomputes one layer's activations at a time. Serving's
+scan body) unless a parallel context says ``remat="none"``, so the
+backward recomputes one layer's activations at a time.
+
+``ctx`` is the model's :class:`repro_torch.parallel.ParallelContext` (or
+None), read where the reference reads it: MoE layers take the
+expert-parallel path under a context with ``use_ep``, and the attention's
+chunk and schedule come from its ``attn_chunk`` / ``attn_schedule``
+(otherwise from ``chunk`` / ``schedule``). Serving's
 :func:`prefill` and :func:`decode_step` run under ``torch.no_grad``.
 :func:`lm_loss` trains through the ``"torch"`` attention, as the reference
 trains through its jnp attention: the hand-written kernel has no backward.
@@ -70,12 +76,27 @@ def init_lm(gen, cfg: ModelConfig, device=None) -> LM:
     return LM(cfg, gen, device)
 
 
-def _ffn(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor
+def attn_options(ctx, chunk: int, schedule: str) -> Tuple[int, str]:
+    """The attention's (chunk, schedule): the context's when there is
+    one, else the arguments."""
+    if ctx is not None:
+        return ctx.attn_chunk, ctx.attn_schedule
+    return chunk, schedule
+
+
+def checkpointed(ctx) -> bool:
+    """Per-layer recompute in the backward: without a context, or under
+    ``remat="layer"`` (the reference's ``ctx is None or ctx.remat ==
+    "layer"``)."""
+    return ctx is None or ctx.remat == "layer"
+
+
+def _ffn(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor, ctx=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Feed-forward (dense MLP, or MoE plus the optional dense residual)
     -> (y, aux)."""
     if cfg.moe is not None:
-        y, aux = moe_apply(cfg, p.moe, x)
+        y, aux = moe_apply(cfg, p.moe, x, parallel=ctx)
         if cfg.moe.dense_residual:
             y = y + L.apply_mlp(cfg, p.dense_mlp, x)
         return y, aux
@@ -85,19 +106,20 @@ def _ffn(cfg: ModelConfig, p: DecoderLayer, x: torch.Tensor
 
 def apply_layer(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
                 chunk: int = 512, schedule: str = "rect",
-                backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                backend: str = "cuda", ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    chunk, schedule = attn_options(ctx, chunk, schedule)
     h = L.apply_norm(cfg, p.norm1, x)
     h = attn_lib.self_attention(cfg, p.attn, h, positions,
                                 window=cfg.sliding_window, chunk=chunk,
                                 schedule=schedule, backend=backend)
     x = x + h
     h = L.apply_norm(cfg, p.norm2, x)
-    h, aux = _ffn(cfg, p, h)
+    h, aux = _ffn(cfg, p, h, ctx)
     return x + h, aux
 
 
 def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
-                       k_cache, v_cache, index: int):
+                       k_cache, v_cache, index: int, ctx=None):
     """Single-token decode for one layer; returns (x, (k_cache, v_cache)),
     the caches written in place."""
     h = L.apply_norm(cfg, p.norm1, x)
@@ -110,7 +132,7 @@ def apply_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, positions,
                                window=cfg.sliding_window)
     x = x + attn_lib.out_proj(cfg, p.attn, o)
     h = L.apply_norm(cfg, p.norm2, x)
-    h, _ = _ffn(cfg, p, h)
+    h, _ = _ffn(cfg, p, h, ctx)
     return x + h, (k_cache, v_cache)
 
 
@@ -135,18 +157,19 @@ def _embed(cfg: ModelConfig, params: LM, tokens, positions) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             chunk: int = 512, schedule: str = "rect",
-            backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+            backend: str = "cuda", ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, V), aux_loss). Under grad
-    mode each layer is checkpointed (recomputed in the backward)."""
+    mode each layer is checkpointed (recomputed in the backward) unless
+    ``ctx.remat`` is ``"none"``."""
     positions = _positions_for(cfg, tokens, positions)
     x = _embed(cfg, params, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     run = (functools.partial(checkpoint, apply_layer, use_reentrant=False,
                              preserve_rng_state=False)
-           if torch.is_grad_enabled() else apply_layer)
+           if torch.is_grad_enabled() and checkpointed(ctx) else apply_layer)
     for layer in params.layers:
         x, a = run(cfg, layer, x, positions, chunk=chunk, schedule=schedule,
-                   backend=backend)
+                   backend=backend, ctx=ctx)
         aux = aux + a
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x), aux
@@ -164,9 +187,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             chunk: int = 512, schedule: str = "rect",
-            backend: str = "cuda") -> Tuple[torch.Tensor, Cache]:
+            backend: str = "cuda", ctx=None) -> Tuple[torch.Tensor, Cache]:
     """Forward + emit KV caches -> (logits_last (B, V), cache of S
     positions, each layer's K/V written into it in place)."""
+    chunk, schedule = attn_options(ctx, chunk, schedule)
     B, S = tokens.shape
     positions = _positions_for(cfg, tokens, positions)
     x = _embed(cfg, params, tokens, positions)
@@ -181,7 +205,7 @@ def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
                             chunk=chunk, schedule=schedule, backend=backend)
         x = x + attn_lib.out_proj(cfg, layer.attn, o)
         h = L.apply_norm(cfg, layer.norm2, x)
-        h, _ = _ffn(cfg, layer, h)
+        h, _ = _ffn(cfg, layer, h, ctx)
         x = x + h
         attn_lib.cache_update(cache["k"][i], cache["v"][i], k, v, 0)
     x = L.apply_norm(cfg, params.final_norm, x[:, -1:, :])
@@ -191,7 +215,7 @@ def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
-                positions=None) -> Tuple[torch.Tensor, Cache]:
+                positions=None, ctx=None) -> Tuple[torch.Tensor, Cache]:
     """One-token decode. tokens: (B, 1); index: tokens already cached.
 
     Returns (logits (B, V), cache), the cache written in place."""
@@ -203,14 +227,14 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
     x = _embed(cfg, params, tokens, positions)
     for i, layer in enumerate(params.layers):
         x, _ = apply_layer_decode(cfg, layer, x, positions, cache["k"][i],
-                                  cache["v"][i], index)
+                                  cache["v"][i], index, ctx)
     x = L.apply_norm(cfg, params.final_norm, x)
     logits = L.unembed(cfg, params.embed, x)[:, 0, :]
     return logits, cache
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor], *,
-            chunk: int = 512) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            chunk: int = 512, ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["mask"]`` (default: every
     position) plus the MoE aux loss -> (loss, {"xent", "aux"}).
 
@@ -218,7 +242,7 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor], *,
     trains through its jnp attention: the hand-written kernel has no
     backward (its wrapper refuses inputs that require grad)."""
     logits, aux = forward(cfg, params, batch["tokens"], batch.get("positions"),
-                          chunk=chunk, backend="torch")
+                          chunk=chunk, backend="torch", ctx=ctx)
     labels = batch["labels"].to(torch.int64)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]

@@ -18,12 +18,14 @@ leading pair axis.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -232,18 +234,29 @@ def init_xlstm_state(cfg: ModelConfig, batch: int, device=None):
             "slstm": stack(init_slstm_state(cfg, batch, device))}
 
 
-def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state=None):
+def _pair(cfg: ModelConfig, pair, x, m_st, s_st):
+    h, m_st = apply_mlstm(cfg, pair.mlstm, L.apply_norm(cfg, pair.norm_m, x), m_st)
+    x = x + h
+    h, s_st = apply_slstm(cfg, pair.slstm, L.apply_norm(cfg, pair.norm_s, x), s_st)
+    return x + h, m_st, s_st
+
+
+def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state=None,
+                  ctx=None):
     """(logits (B, S, V), aux = 0, new state) from ``state`` (the initial
-    state when None); ``state`` is not written."""
+    state when None); ``state`` is not written. Under a parallel context
+    with ``remat="layer"`` each (mLSTM, sLSTM) pair is checkpointed under
+    grad mode (none is without a context, as in the reference)."""
+    run = (functools.partial(checkpoint, _pair, use_reentrant=False,
+                             preserve_rng_state=False)
+           if ctx is not None and ctx.remat == "layer" and torch.is_grad_enabled()
+           else _pair)
     x = L.embed_tokens(cfg, params.embed, tokens)
     ms, ss = [], []
     for i, pair in enumerate(params.pairs):
         m_st = None if state is None else {k: t[i] for k, t in state["mlstm"].items()}
         s_st = None if state is None else {k: t[i] for k, t in state["slstm"].items()}
-        h, m_st = apply_mlstm(cfg, pair.mlstm, L.apply_norm(cfg, pair.norm_m, x), m_st)
-        x = x + h
-        h, s_st = apply_slstm(cfg, pair.slstm, L.apply_norm(cfg, pair.norm_s, x), s_st)
-        x = x + h
+        x, m_st, s_st = run(cfg, pair, x, m_st, s_st)
         ms.append(m_st)
         ss.append(s_st)
     x = L.apply_norm(cfg, params.final_norm, x)
@@ -254,19 +267,19 @@ def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state
 
 
 @torch.no_grad()
-def xlstm_prefill(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor):
+def xlstm_prefill(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, ctx=None):
     """(last logits (B, V), the state after the prompt)."""
-    logits, _, state = xlstm_forward(cfg, params, tokens)
+    logits, _, state = xlstm_forward(cfg, params, tokens, ctx=ctx)
     return logits[:, -1, :], state
 
 
 @torch.no_grad()
 def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state, tokens: torch.Tensor,
-                      index: int):
+                      index: int, ctx=None):
     """One-token decode (``index`` unused: the recurrent state carries no
     position) -> (logits (B, V), new state)."""
     del index
-    logits, _, new_state = xlstm_forward(cfg, params, tokens, state)
+    logits, _, new_state = xlstm_forward(cfg, params, tokens, state, ctx=ctx)
     return logits[:, 0, :], new_state
 
 

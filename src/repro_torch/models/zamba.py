@@ -17,15 +17,18 @@ attention (:func:`repro_torch.models.model_zoo.Model.loss`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import apply_mamba2, init_mamba2, init_mamba_state
+from repro_torch.models.transformer import attn_options
 
 Cache = Dict[str, object]
 
@@ -80,11 +83,19 @@ def _shared_mlp(cfg: ModelConfig, sa: SharedAttention, x):
 
 def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
                   state: Optional[Cache] = None, *, emit_cache: bool = False,
-                  chunk: int = 512, backend: str = "cuda"):
+                  chunk: int = 512, backend: str = "cuda", ctx=None):
     """Full-sequence forward from ``state`` (zeros when None) ->
     (logits (B, S, V), aux = 0, cache or None). With ``emit_cache`` the
     cache holds each layer's final SSM and conv state and each group's
-    K/V (in the compute type)."""
+    K/V (in the compute type). Under a parallel context the attention's
+    chunk and schedule are its ``attn_chunk`` / ``attn_schedule``, and
+    with ``remat="layer"`` each Mamba2 layer is checkpointed under grad
+    mode (none is without a context, as in the reference)."""
+    chunk, schedule = attn_options(ctx, chunk, "rect")
+    layer = (functools.partial(checkpoint, _mamba_layer, use_reentrant=False,
+                               preserve_rng_state=False)
+             if ctx is not None and ctx.remat == "layer" and torch.is_grad_enabled()
+             else _mamba_layer)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = L.embed_tokens(cfg, params.embed, tokens)
@@ -96,13 +107,14 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
         for j in range(per):
             i = g * per + j
             st = None if state is None else {k: t[i] for k, t in state["mamba"].items()}
-            x, st = _mamba_layer(cfg, params.mamba_layers[i], x, st, single_step=False)
+            x, st = layer(cfg, params.mamba_layers[i], x, st, single_step=False)
             states.append(st)
         h = L.apply_norm(cfg, sa.norm1, x)
         q, k, v = attn_lib.qkv_proj(cfg, sa.attn, h)
         q = L.apply_rope(cfg, q, positions)
         k = L.apply_rope(cfg, k, positions)
-        o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, backend=backend)
+        o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, schedule=schedule,
+                            backend=backend)
         x = _shared_mlp(cfg, sa, x + attn_lib.out_proj(cfg, sa.attn, o))
         if emit_cache:
             ks.append(k.to(dt))
@@ -119,10 +131,10 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
 
 @torch.no_grad()
 def zamba_prefill(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor, *,
-                  backend: str = "cuda"):
+                  backend: str = "cuda", ctx=None):
     """(last logits (B, V), cache of S positions)."""
     logits, _, cache = zamba_forward(cfg, params, tokens, emit_cache=True,
-                                     backend=backend)
+                                     backend=backend, ctx=ctx)
     return logits[:, -1, :], cache
 
 

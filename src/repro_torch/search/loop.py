@@ -226,7 +226,8 @@ def run_search(space: SearchSpace,
                     plan = exp.plan()
                 key_strs = [str(k) for k in
                             group_cache_keys(plan,
-                                             trace_backend=trace_backend)]
+                                             trace_backend=trace_backend,
+                                             device=device)]
                 cand_keys = _candidate_keys(plan, key_strs)
                 new_keys = sorted(set(key_strs) - warm_keys)
 

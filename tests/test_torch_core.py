@@ -273,15 +273,19 @@ def test_params_from_numpy_match_port_params(flags):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """No module of the port nor chip_smoke.py imports jax or the JAX
-    package, by source and at run time (the simulator, the traces and the
-    search with its objectives and driver)."""
+    package, by source and at run time (the simulator, the traces, the
+    search with its objectives and driver, parallel/, the launchers and
+    the expert-parallel MoE)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)", re.M)
     files = list((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
     code = ("import sys, repro_torch.core.famsim, repro_torch.traces, repro_torch.search, "
             "repro_torch.search.loop, repro_torch.tenants.search, "
-            "repro_torch.benchmarks.fig_search; "
+            "repro_torch.benchmarks.fig_search, repro_torch.parallel, "
+            "repro_torch.parallel.compat, repro_torch.parallel.compression, "
+            "repro_torch.parallel.pipeline, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.models.moe; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
@@ -294,3 +298,23 @@ def test_cuda_entry_points_refuse_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tfam.build_sim(FamConfig(), tfam.SimFlags(), 1)
+
+
+def test_parallel_entry_points_default_to_cuda():
+    """The parallel context, the model and the executor run on the card
+    unless told otherwise; without one, the one-rank context refuses
+    "cuda" rather than fall back to the CPU."""
+    import inspect
+
+    from repro_torch.experiments import executor
+    from repro_torch.models import build_model
+    from repro_torch.parallel import single_device_context
+    for fn in (single_device_context, build_model, executor.execute,
+               executor.group_cache_keys):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_device_context("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_device_context()

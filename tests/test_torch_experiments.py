@@ -228,9 +228,9 @@ def small_results():
     jexp, texp = _pair()
     from repro_torch.experiments import executor
     executor._TRACE_CACHE.clear()
-    return (jexp.run(trace_backend="numpy"),
+    return (jexp.run(trace_backend="numpy", cross_check_shard=True),
             texp.run(trace_backend="numpy", device="cpu", cross_check_shard=True,
-                     assert_compiles=True))
+                     cross_check_eager=True, assert_compiles=True))
 
 
 def test_execute_numpy_bit_exact(small_results):
@@ -241,7 +241,11 @@ def test_execute_numpy_bit_exact(small_results):
     assert info.systems == 4 and info.events == 4 * T
     # two traces generated (LU, bfs); the base and dram variants share them
     assert info.host_trace_events == 2 * T
-    assert info.shard_check == {"group": 0, "primary": "steps", "alt": "eager",
+    # the reference's record of its shard check, key for key
+    assert info.shard_check == jres.info.shard_check == {
+        "group": 0, "primary": "vmap", "alt": "('shard', 1)", "systems": 4,
+        "bit_exact": True}
+    assert info.eager_check == {"group": 0, "primary": "steps", "alt": "eager",
                                 "systems": 4, "bit_exact": True}
     assert info.spans is None
     assert info.as_dict()["groups"][0]["launches"] == 0     # CPU: plain version
@@ -326,8 +330,11 @@ def test_execute_device_backend_within_tolerance():
 
 def test_execute_refuses_what_is_not_ported():
     _, texp = _pair()
-    with pytest.raises(NotImplementedError, match="several devices"):
-        texp.run(devices=2, device="cpu")
+    # sharding over devices is ported (tests/test_torch_parallel.py runs
+    # it); a count below one is refused
+    assert tx.group_cache_keys(texp.plan(), devices=2)[0][6] == ("shard", 2)
+    with pytest.raises(ValueError, match="at least one"):
+        texp.run(devices=0, device="cpu")
     with pytest.raises(ValueError, match="unknown trace backend"):
         texp.run(trace_backend="pcg", device="cpu")
     if not torch.cuda.is_available():

@@ -463,9 +463,16 @@ def test_driver_matches_reference_at_short_T(name, monkeypatch, tmp_path):
     if kw:
         assert rows[-1]["check"]["max_rel_diff"] == 0.0
         assert rows[-1]["check"]["points_checked"] == kw["check_points"]
-    check = rows[-1]["shard_check"]
+    check = rows[-1]["eager_check"]
     assert check["bit_exact"] and check["alt"] == "eager"
     assert check["T"] == T_SHORT and check["launches"] == 0    # CPU tensors
+    # fig08 / fig16 also carry the reference's shard check, as its rows do
+    if name in ("fig08_blocksize", "fig16_cachesize"):
+        assert rows[-1]["shard_check"] == {
+            "group": 0, "primary": "vmap", "alt": "('shard', 1)",
+            "systems": res.info.groups[0]["S_exec"], "bit_exact": True}
+    else:
+        assert "shard_check" not in rows[-1]
 
 
 def _combos(specs):

@@ -37,6 +37,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models import build_model, pad_cache, params_from_numpy
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.parallel import single_device_context as t_single_device_context
 from repro_torch.serve.engine import Engine, ServeConfig
 
 F32 = dict(scale=1e-5, rtol=1e-5)
@@ -221,11 +222,18 @@ def test_moe_dense_matches(dtype, E, k, activation):
 
 
 def test_moe_apply_raises_for_expert_parallel_context():
+    """A context with ``use_ep`` takes moe_sharded (no longer refused: 4
+    tokens fill no expert's capacity of 8, so it equals the dense path
+    within F32); none, or ``use_ep`` off, takes moe_dense exactly."""
     jc, tc = _cfgs()
     _, tp = _moe_params(jc, tc)
     _, tx = _x((1, 4, tc.d_model), "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        M.moe_apply(tc, tp, tx, parallel=SimpleNamespace(use_ep=True))
+    with M.dispatch_record() as rec:
+        y, aux = M.moe_apply(tc, tp, tx, parallel=t_single_device_context("cpu"))
+    assert len(rec) == 1 and int(rec[0]["dropped"]) == 0
+    want, want_aux = M.moe_dense(tc, tp, tx)
+    _close(y, want.detach(), **F32)
+    _close(aux, want_aux.detach(), **F32)
     for parallel in (None, SimpleNamespace(use_ep=False)):
         y, aux = M.moe_apply(tc, tp, tx, parallel=parallel)
         want, want_aux = M.moe_dense(tc, tp, tx)

@@ -601,10 +601,11 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys, optimizer):
             "--checkpoint-every", "2"]
     report = train_launch.main(argv)
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith(f"arch={MOE_ARCH} params=0.1M device=cpu steps=4")
+    assert out[0].startswith(f"arch={MOE_ARCH} params=0.1M mesh={{'data': 1, 'model': 1}} "
+                             "device=cpu steps=4")
     assert out[-1].startswith("done: loss ") and np.isfinite(report.losses).all()
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000002", "step_00000004"]
     resumed = train_launch.main(argv + ["--resume", "--steps", "6"])
     assert resumed.restarts == 1 and resumed.steps == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 devices, found 1"):
         train_launch.main(argv + ["--production"])
