@@ -112,7 +112,13 @@ code != 0):
    the encoder's 6 unmasked, the decoder's 6 causal self-attention and 6
    cross-attention) and ``vlm_serving`` (qwen2-vl-72b cut from 80 to 8 layers to
    fit one card, M-RoPE over (t, h, w) planes of a text span, a 32 x 32
-   image grid at one t and text; 1 x 4,096 + 8; 8 tensor-core launches):
+   image grid at one t and text; 1 x 4,096 + 8; 8 tensor-core launches;
+   then the buffered decode: 8 steps of ``decode_step_buffered`` with W 8
+   from base_len 4,096 against ``decode_step`` on the same tokens and
+   positions, each step's logits within SERVE_TOL, then ``flush_buffer``:
+   rows 4,096 .. 4,103 equal the buffer bit for bit, layer 0's the plain
+   decode's bit for bit and every layer's within SERVE_TOL; ms a buffered
+   step and the flush's beside the plain decode's):
    the param count against the config's where the reference holds it;
    ``Engine.generate`` with the launches counted (none in decode, no
    other kernel); the same params teacher-forced on the generated tokens
@@ -160,7 +166,14 @@ code != 0):
    no-drop capacity against the context-free prefill with the routing
    pinned: last logits and K/V cache within SERVE_TOL (the bf16 gap
    printed); (d) ``ef_compress_allreduce`` (out + err == g) and a
-   one-stage ``pipeline_forward`` (== layer_fn per microbatch);
+   one-stage ``pipeline_forward`` (== layer_fn per microbatch); (e) the
+   model's sharded run: (c)'s prefill with the parameters from
+   ``Model.shard`` (DTensors by the reference's ``param_shardings`` on
+   the context's one-rank ``DeviceMesh``) and the tokens distributed by
+   ``batch_placements``: 24 tensor-core ``flash_attention`` launches
+   (counted apart), the last logits within SERVE_TOL of (c)'s, tokens/s
+   beside (c)'s; one warm-up and one timed AdamW step of (b) on the
+   sharded model;
 8. the simulator's path: the fig08 quick grid (6 block sizes x 6 workloads
    x {base, dram} = 72 systems, 1 node, T = 12,000, numpy traces, cache
    padded to 16384 x 16; the traces are the figure golden's inputs, put
@@ -205,7 +218,8 @@ code != 0):
    host generation, which the memo keeps out of the wall); then each
    run's engine row through the driver's ``engine``: the per-point check
    (FIG_ENGINE_POINTS point a figure at full T, cut for time) exact, and on
-   the numpy-trace run (EAGER_BACKENDS) the grid at ``XCHECK_T`` events
+   the numpy-trace run (EAGER_BACKENDS) the grid at XCHECK_EVENTS events
+   (``benchmarks.common.XCHECK_T``, 1,000, cut to 500 for time)
    graphed and re-run step by step, bit-exact (``eager_check``), and for
    fig08 / fig16 (SHARD_FIGURES) re-run as ``("shard", 1)``, the
    reference's ``shard_check`` key for key;
@@ -213,7 +227,7 @@ code != 0):
    groups; device traces for fig15 only, cut for
    time: NEW_FIG_BACKENDS), the counts read around their four runs
    alone, every check of phase 12 against the golden; on the numpy-trace
-   run the engine row's graph-vs-eager check at ``XCHECK_T`` and a
+   run the engine row's graph-vs-eager check at XCHECK_EVENTS and a
    per-point check of NEW_FIG_ENGINE_POINTS point;
 13b. the executor's sharded mode (``shard_executor``): the fig08 quick grid
    at SHARD_T events on numpy traces through ``execute(cross_check_shard=
@@ -392,6 +406,9 @@ FAMILY_SERVING = {
 # qwen2-vl's (t, h, w) planes: VLM_TEXT text tokens, a VLM_GRID x VLM_GRID
 # image at one t, then text from past the image's largest position
 VLM_TEXT, VLM_GRID = 1024, 32
+# vlm_serving's buffered decode: W slots, as many steps from the prefill's
+# length, then one flush; the timed calls of each step kind
+VLM_BUFFER, VLM_BUFFER_REPEATS = 8, 10
 # the param count is held where the reference holds it: equal for the
 # transformer families, within 25 % for zamba2 (tests/test_models.py:116);
 # printed beside the analytic count for xLSTM and whisper
@@ -432,6 +449,11 @@ NEW_FIG_BACKENDS = {"fig10_bw_adaptation": ("numpy",), "fig12_wfq": ("numpy",),
 # numpy-trace run of each figure: the device-trace run steps the same
 # grid on other inputs, and phase 9 holds graph == eager on fig08's grid
 EAGER_BACKENDS = ("numpy",)
+# the events of that check and of the shard check
+# (benchmarks.common.XCHECK_T, 1,000): cut to 500 for time, which the
+# buffered decode and the sharded run need (phases figures and
+# figures_10_12_15, see PERF.md section 5)
+XCHECK_EVENTS = 500
 # the figures whose engine row also carries the reference's shard check
 # (its fig08 / fig16 run with cross_check_shard), at XCHECK_T on the
 # numpy-trace run
@@ -2285,6 +2307,67 @@ def _rel_line(rel):
     return ", ".join(f"{k} {v[0]:.4g} / {v[1]:.4g}" for k, v in rel.items())
 
 
+def _vlm_buffered(torch, cfg, model, params, prefill_cache, fed):
+    """vlm_serving's buffered decode: VLM_BUFFER steps of
+    ``decode_step_buffered`` (W VLM_BUFFER) from base_len S, the prefill's
+    length, against a read-only copy of the prefill's cache, each step's
+    logits against ``decode_step`` on the same tokens and positions (index
+    S + i on every plane, not the engine's M-RoPE text positions) within
+    SERVE_TOL, no kernel launched; then ``flush_buffer`` at S: rows S ..
+    S + W - 1 equal the buffer bit for bit, layer 0's equal the plain
+    decode's bit for bit (its K/V come from the token and its position
+    alone), every layer's within SERVE_TOL (the later layers' inputs went
+    through the two-source softmax, which rounds otherwise), the rows
+    below S untouched. Prints ms a buffered step and the flush's (CUDA
+    events) beside decode_step's."""
+    from repro_torch.models import pad_cache
+    from repro_torch.models import transformer as T
+    t_start = time.perf_counter()
+    W = VLM_BUFFER
+    B, S = prefill_cache["k"].shape[1], prefill_cache["k"].shape[2]
+    cache = pad_cache({k: prefill_cache[k] for k in ("k", "v")}, S + W)
+    plain = {k: v.clone() for k, v in cache.items()}
+    buf = T.init_kv_buffer(cfg, B, W, device=DEVICE)
+    reset_counts()
+    rel = {}
+    for i in range(W):
+        tok = fed[:, i:i + 1]
+        want, plain = model.decode(params, plain, {"tokens": tok, "index": S + i})
+        got, buf = T.decode_step_buffered(cfg, params, cache, buf, tok, S, i)
+        check(bool(torch.isfinite(got).all()), f"vlm_serving buffered step {i}: logits finite")
+        r = _within(torch, got, want, f"vlm_serving buffered step {i} logits")
+        rel["logits"] = tuple(max(a, b) for a, b in zip(rel.get("logits", (0, 0)), r))
+    launched = counts()
+    check(not any(launched.values()), f"the buffered decode launched {launched}")
+    for k in ("k", "v"):
+        check(torch.equal(cache[k][:, :, :S], prefill_cache[k]) and
+              not bool(cache[k][:, :, S:].any()), f"the buffered decode wrote the {k} cache")
+    T.flush_buffer(cfg, cache, buf, S)
+    same_layers = []
+    for k in ("k", "v"):
+        new, ref = cache[k][:, :, S:], plain[k][:, :, S:]
+        check(torch.equal(new, buf[k].to(new.dtype)), f"flushed {k} rows != the buffer")
+        check(torch.equal(cache[k][:, :, :S], prefill_cache[k]), f"the flush moved {k} rows < S")
+        check(torch.equal(new[0], ref[0]), f"flushed layer 0 {k} rows != the plain decode's")
+        rel[f"flushed {k}"] = _within(torch, new, ref, f"vlm_serving flushed {k} rows")
+        same_layers.append(sum(bool(torch.equal(new[l], ref[l])) for l in range(new.shape[0])))
+    step_ms = _time(torch, lambda: T.decode_step_buffered(cfg, params, cache, buf,
+                                                          fed[:, :1], S, 0), VLM_BUFFER_REPEATS)
+    flush_ms = _time(torch, lambda: T.flush_buffer(cfg, cache, buf, S), VLM_BUFFER_REPEATS)
+    plain_ms = _time(torch, lambda: model.decode(params, plain, {"tokens": fed[:, :1],
+                                                                 "index": S}),
+                     VLM_BUFFER_REPEATS)
+    print(f"vlm_serving buffered decode (W {W}, base_len {S}, {W} steps, positions S + i on "
+          f"every plane): each step's logits against decode_step's, then the flush's rows "
+          f"against the plain decode's: {_rel_line(rel)} (max abs err / max|ref|, share of the "
+          f"allowance; tol {SERVE_TOL}); flushed rows equal the buffer bit for bit, layer 0's "
+          f"the plain decode's (layers bit-identical of {cfg.num_layers}: k {same_layers[0]}, "
+          f"v {same_layers[1]}); no kernel launched; {step_ms:.3f} ms a buffered step, flush "
+          f"{flush_ms:.3f} ms, decode_step {plain_ms:.3f} ms in this run (CUDA events, "
+          f"{VLM_BUFFER_REPEATS} calls each); {time.perf_counter() - t_start:.3f} s", flush=True)
+    del cache, plain, buf
+
+
 def family_serving_path(torch, phase):
     """One family at its published widths (FAMILY_SERVING[phase]), random
     weights from a seed: Engine.generate (the main path: its
@@ -2387,6 +2470,8 @@ def family_serving_path(torch, phase):
         extra_line = _hybrid_teacher_forcing(torch, cfg, params, tokens, fed, kern)
     if cfg.xlstm is not None:
         extra_line = _ssm_chunked(torch, cfg, params, tokens, kern)
+    if phase == "vlm_serving":
+        _vlm_buffered(torch, cfg, model, params, kern["prefill_cache"], fed)
     peak = torch.cuda.max_memory_allocated()
     print(f"{phase} {cfg.name} on {_card()}: prefill {kern['prefill_s']:.4f} s wall, "
           f"{B * S / kern['prefill_s']:.1f} prefill tokens/s{ref_line[0]}; decode "
@@ -3042,9 +3127,100 @@ def _parallel_prefill(torch, cfg, ctx):
           f" (max abs err / max|ref|, share of the allowance; tol {SERVE_TOL}); unchecked, "
           f"the same in bfloat16: {bf_gap[0]:.4g} / {bf_gap[1]:.4g}",
           flush=True)
+    with torch.no_grad():
+        logits = model.prefill(params, {"tokens": tokens})[0]
     del params, engine, model, plain, got, want
     torch.cuda.empty_cache()
-    return launched, dict(prefill_s=walls["ctx"], plain_s=walls["plain"], dropped=dropped)
+    return launched, dict(prefill_s=walls["ctx"], plain_s=walls["plain"], dropped=dropped,
+                          tokens=tokens, logits=logits)
+
+
+def _parallel_sharded(torch, cfg, ctx, prefill, train):
+    """(e) The model's sharded run on the context's one-rank DeviceMesh:
+    the parameters from ``Model.shard`` (DTensors placed by the
+    reference's ``param_shardings``), the tokens of (c) distributed by
+    ``batch_placements``: the prefill at PARALLEL_PREFILL launches the
+    hand-written tensor-core ``flash_attention`` once a layer on each
+    rank's heads (counted apart; no plain version runs), its last logits
+    within SERVE_TOL of (c)'s (the max difference printed), tokens/s beside
+    (c)'s; then one warm-up and one timed AdamW step of (b) on the sharded
+    model. Returns its launches and seconds."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import batch_placements
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import distribute, is_dtensor
+    from repro_torch.train.steps import build_train_step, init_opt_state
+    t_start = time.perf_counter()
+    B, S = PARALLEL_PREFILL
+    model = build_model(cfg, ctx, device=DEVICE)
+    params = model.shard(model.init(SERVE_SEED))
+    check(all(is_dtensor(p) for p in params.parameters()), "Model.shard left plain parameters")
+    batch = distribute({"tokens": prefill["tokens"]},
+                       batch_placements(ctx, {"tokens": prefill["tokens"]}), ctx, DEVICE)
+    walls = []
+    for i in range(PARALLEL_PREFILL_REPEATS):
+        if i == 0:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launched, variants = counts(), flash_variants()
+    L = cfg.num_layers
+    check(launched["flash_attention"] == L and variants == {"tensor_core": L, "cuda_core": 0},
+          f"sharded prefill: flash_attention {launched['flash_attention']} ({variants}), "
+          f"expected {L} tensor_core")
+    check(not any(v for k, v in launched.items() if k != "flash_attention"),
+          f"unexpected launches on the sharded prefill: {launched}")
+    check(is_dtensor(logits) and is_dtensor(cache["k"]), "the sharded prefill's outputs")
+    got = logits.full_tensor()
+    check(bool(torch.isfinite(got).all()) and got.shape == (B, cfg.vocab_size),
+          "sharded prefill logits finite, (B, vocab)")
+    rel = _within(torch, got, prefill["logits"], "sharded prefill logits vs (c)")
+    diff = float((got.float() - prefill["logits"].float()).abs().max())
+    prefill_s = float(np.median(walls))
+    prefill_seconds = time.perf_counter() - t_start
+    del logits, cache, got, batch
+    torch.cuda.empty_cache()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    state = {"params": params, "opt": init_opt_state(params)}
+    step = build_train_step(model, AdamWConfig(**TRAIN_OPT))
+    reset_counts()
+    step_walls, losses = [], []
+    for i in range(2):
+        raw = data.batch(i, DEVICE)
+        batch = distribute(raw, batch_placements(ctx, raw), ctx, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+    check(not any(counts().values()), f"the sharded train step launched {counts()}")
+    check(all(np.isfinite(losses)), f"sharded train losses {losses}")
+    check(all(is_dtensor(p) for p in state["params"].parameters()),
+          "the sharded train step left plain parameters")
+    train_seconds = time.perf_counter() - t_start - prefill_seconds
+    print(f"parallel (e) {cfg.name} sharded as DTensors on single_device_context's one-rank "
+          f"DeviceMesh {tuple(ctx.mesh.shape.items())}: prefill {B} x {S} launched "
+          f"flash_attention {launched['flash_attention']} times (by variant {variants}; counted "
+          f"apart); its last logits against (c)'s: max abs diff {diff:.6g}, "
+          f"{rel[0]:.4g} / {rel[1]:.4g} (max abs err / max|ref|, share of the allowance; tol "
+          f"{SERVE_TOL}); {prefill_s:.4f} s = {B * S / prefill_s:.1f} tokens/s (median of "
+          f"{PARALLEL_PREFILL_REPEATS}; the first {walls[0]:.4f} s), (c) "
+          f"{prefill['prefill_s']:.4f} s = {B * S / prefill['prefill_s']:.1f} tokens/s; one "
+          f"AdamW step of (b) at {TRAIN_BATCH} x {TRAIN_SEQ} on the sharded model "
+          f"{step_walls[1] * 1e3:.1f} ms (warm-up {step_walls[0] * 1e3:.1f} ms; (b) "
+          f"{train['step_ms']:.1f} ms), losses {[round(v, 4) for v in losses]}; prefill "
+          f"addition {prefill_seconds:.3f} s, train addition {train_seconds:.3f} s",
+          flush=True)
+    del state, params, model, step, metrics
+    torch.cuda.empty_cache()
+    return dict(launched=launched, prefill_s=prefill_s, step_ms=step_walls[1] * 1e3)
 
 
 def _parallel_collectives(torch, ctx):
@@ -3079,8 +3255,8 @@ def parallel_path(torch, dense):
     """Phase 7h: ``single_device_context("cuda")`` (a one-rank NCCL group)
     and granite-moe-1b-a400m at its published widths: (a) one MoE layer,
     (b) the launcher's train path, (c) a prefill through the Engine, (d)
-    the collectives. ``dense`` is phase train's result. Returns the
-    prefill's launches."""
+    the collectives, (e) the sharded run. ``dense`` is phase train's
+    result. Returns (c)'s launches and (e)'s result."""
     from repro_torch.configs.registry import get_config
     from repro_torch.parallel import single_device_context
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3095,10 +3271,11 @@ def parallel_path(torch, dense):
           f"moe_token_chunk {ctx.moe_token_chunk}, remat {ctx.remat!r}", flush=True)
     cfg = get_config(PARALLEL_ARCH)
     _parallel_layer(torch, cfg, ctx)
-    _parallel_train(torch, cfg, ctx, dense)
-    launched, _ = _parallel_prefill(torch, cfg, ctx)
+    train = _parallel_train(torch, cfg, ctx, dense)
+    launched, prefill = _parallel_prefill(torch, cfg, ctx)
     _parallel_collectives(torch, ctx)
-    return launched
+    sharded = _parallel_sharded(torch, cfg, ctx, prefill, train)
+    return launched, sharded
 
 
 # --------------------------------------------------------------------------
@@ -3496,6 +3673,9 @@ def figures_path(torch, grid_out, gen_s, names=FIGURES, backends=None):
     the counts read around these figure runs alone; then each run's checks
     and engine row. Returns the figure runs' launches of fused_cache_step."""
     import importlib
+
+    from repro_torch.benchmarks import common
+    common.XCHECK_T = XCHECK_EVENTS
     golden = json.loads((ROOT / "src/repro_torch/testdata/figures_golden.json").read_text())
     runs = []
     reset_counts()
@@ -4330,9 +4510,10 @@ def main(argv=None):
           ", ".join(f"{p} {n['flash_attention']}" for p, n in family_launched.items()),
           flush=True)
     dense_train = phases.run("train", train_path, torch)
-    parallel_launched = phases.run("parallel", parallel_path, torch, dense_train)
+    parallel_launched, sharded = phases.run("parallel", parallel_path, torch, dense_train)
     print(f"flash_attention launches of phase parallel's prefill (counted apart): "
-          f"{parallel_launched['flash_attention']}", flush=True)
+          f"{parallel_launched['flash_attention']}; of its sharded prefill (e): "
+          f"{sharded['launched']['flash_attention']}", flush=True)
     gen_s = seed_golden_traces()
     launches, _, replay_ms, grid_out = phases.run("main_path", main_path, torch)
     phases.run("backends_and_golden", backends_and_golden, torch)

@@ -1,8 +1,8 @@
 """Attention: GQA/MQA/MHA with chunked (memory-efficient) prefill
 attention, contiguous-KV decode, sliding windows and cross-attention.
 
-Counterpart of ``repro.models.attention`` (its ``attention.py:31-237``);
-the buffered decode waits for the launcher that uses it.
+Counterpart of ``repro.models.attention`` (its ``attention.py:31-291``),
+the two-source decode of the buffered decode included.
 
 Layouts, as in the reference:
 
@@ -24,9 +24,17 @@ triangular group schedule for ``schedule="grouped"``. The rule is
 explicit: nothing falls back on failure. Decode attention, self and
 cross, is plain torch over the cache, as the reference computes it
 outside any kernel.
+
+On DTensors (the model's sharded run) :func:`attend` runs on each rank's
+shard: q, k and v keep the batch's sharding and are split by heads over
+the axis that holds the projections' heads when both ``Hq`` and ``Hkv``
+divide it (else the heads are gathered, so the GQA grouping sees whole
+groups); the local call, the kernel's included, takes plain tensors and
+its output is the same shard of the DTensor result.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,6 +44,7 @@ from torch import nn
 from repro_torch.configs.base import KERNEL_BACKENDS, ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, param, torch_dtype
+from repro_torch.parallel.sharding import is_dtensor
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 ROTARY = ("rope", "mrope")     # positions that rotate q and k
@@ -62,10 +71,27 @@ def init_attention(gen, cfg: ModelConfig, device=None,
     return Attention(cfg, gen, device, kv_input_dim)
 
 
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim). A DTensor whose
+    last dim is split over more ranks than ``heads`` divides is gathered
+    along it first (DTensor splits a sharded dim only at its outer
+    factor)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last, split, placements = t.ndim - 1, 1, []
+        for i, pl in enumerate(t.placements):
+            if pl.is_shard() and pl.dim % t.ndim == last:
+                split *= t.device_mesh.size(i)
+                if heads % split:
+                    pl = Replicate()
+            placements.append(pl)
+        t = t.redistribute(t.device_mesh, tuple(placements))
+    return t.reshape(t.shape[:2] + (heads, head_dim))
+
+
 def qkv_proj(cfg: ModelConfig, p: Attention, x: torch.Tensor,
              kv_x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S = x.shape[:2]
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = split_heads(x @ p.wq.to(x.dtype), cfg.num_heads, cfg.head_dim)
     k, v = kv_proj(cfg, p, x if kv_x is None else kv_x)
     return q, k, v
 
@@ -74,10 +100,9 @@ def kv_proj(cfg: ModelConfig, p: Attention, kv_x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The K/V projections of ``kv_x`` (B, Skv, d); alone, the encoder's
     K/V for cross-attention."""
-    B, Skv = kv_x.shape[:2]
     dt = kv_x.dtype
-    k = (kv_x @ p.wk.to(dt)).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
-    v = (kv_x @ p.wv.to(dt)).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
+    k = split_heads(kv_x @ p.wk.to(dt), cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(kv_x @ p.wv.to(dt), cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -175,9 +200,59 @@ def attend_grouped(cfg: ModelConfig, q, k, v, *, window: int = 0,
     return torch.cat(outs, dim=1)
 
 
+def _head_placements(q, k) -> Tuple[tuple, int]:
+    """(placements for q / k / v of a sharded attention, the heads' split):
+    per mesh axis, the batch's ``Shard(0)`` where q has it, ``Shard(2)``
+    where q's heads are split and both head counts divide, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    Hq, Hkv = q.shape[2], k.shape[2]
+    out, split = [], 1
+    for i, pl in enumerate(q.placements):
+        n = q.device_mesh.size(i)
+        if pl == Shard(0):
+            out.append(pl)
+        elif pl == Shard(2) and Hq % (split * n) == 0 and Hkv % (split * n) == 0:
+            out.append(pl)
+            split *= n
+        else:
+            out.append(Replicate())
+    return tuple(out), split
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous cotangent: the
+    DTensor views of the projections' backward take no other."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend_local(cfg: ModelConfig, q, k, v, **kw):
+    """:func:`attend` on each rank's shard of DTensor q / k / v."""
+    from torch.distributed.tensor import DTensor
+    placements, split = _head_placements(q, k)
+    mesh = q.device_mesh
+    ql, kl, vl = (_ContiguousGrad.apply(t.redistribute(mesh, placements).to_local())
+                  for t in (q, k, v))
+    if split > 1:
+        cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // split,
+                                  num_kv_heads=cfg.num_kv_heads // split)
+    out = attend(cfg, ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, placements, run_check=False)
+
+
 def attend(cfg: ModelConfig, q, k, v, *, causal=True, window: int = 0,
            chunk: int = 512, schedule: str = "rect", groups: int = 8,
            backend: str = "cuda") -> torch.Tensor:
+    if is_dtensor(q):
+        return _attend_local(cfg, q, k, v, causal=causal, window=window, chunk=chunk,
+                             schedule=schedule, groups=groups, backend=backend)
     if backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel backend {backend!r}; expected one "
                          f"of {KERNEL_BACKENDS}")
@@ -213,13 +288,78 @@ def decode_attend(cfg: ModelConfig, q, k_cache, v_cache, index, *,
     return _sdpa(cfg, qg, k_cache, v_cache, bias).reshape(B, 1, Hq, D)
 
 
+def update_start(index: int, size: int, length: int) -> int:
+    """Where ``jax.lax.dynamic_update_slice`` writes ``size`` rows at
+    ``index`` into ``length``: the start clamped to ``[0, length - size]``."""
+    return min(max(int(index), 0), length - size)
+
+
 def cache_update(k_cache, v_cache, k_new, v_new, index: int):
     """Write (B, S_new, Hkv, D) at position ``index`` of the cache, in place
-    (the reference's dynamic_update_slice returns new arrays)."""
+    (the reference's dynamic_update_slice returns new arrays, and clamps a
+    start that would run past the end, as :func:`update_start` does)."""
     S_new = k_new.shape[1]
+    index = update_start(index, S_new, k_cache.shape[1])
     k_cache[:, index:index + S_new] = k_new.to(k_cache.dtype)
     v_cache[:, index:index + S_new] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Two-source decode attention (read-only cache + recent-token write buffer)
+#
+# The buffered decode keeps the big cache read-only while it decodes,
+# writes each token into a small (B, W, Hkv, D) buffer and merges the two
+# sources' partial softmaxes; a flush folds the buffer into the cache every
+# W tokens. Plain torch ops, as the reference computes them outside any
+# kernel.
+# ---------------------------------------------------------------------------
+
+def _partial_sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor):
+    """Online-softmax partial over one KV source -> (m, l, acc), float32.
+
+    q: (B, 1, Hkv, G, D) grouped; k/v: (B, S, Hkv, D); bias: (1, S)
+    float32."""
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    s = s + bias
+    m = torch.amax(s, dim=-1)                                  # (B,H,G,1)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    # the probabilities are cast to q's type before p.v
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v)
+    return m, l, acc.to(torch.float32)
+
+
+def merge_partials(parts):
+    """Merge ``[(m, l, acc), ...]`` online-softmax partials."""
+    m = parts[0][0]
+    for p in parts[1:]:
+        m = torch.maximum(m, p[0])
+    l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+    acc = sum(p[2] * torch.exp(p[0] - m)[..., None] for p in parts)
+    return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+def decode_attend_buffered(cfg: ModelConfig, q, k_cache, v_cache, k_buf, v_buf,
+                           base_len: int, buf_len: int) -> torch.Tensor:
+    """q: (B, 1, Hq, D); cache (B, S, Hkv, D) read-only, valid below
+    ``base_len``; buffer (B, W, Hkv, D), valid below ``buf_len``. Returns
+    (B, 1, Hq, D). A source with no valid row weighs exactly zero (its
+    scores sit at the finite ``NEG_INF``, far below the other source's)."""
+    B, _, Hq, D = q.shape
+    qg = _group_q(cfg, q)
+    S, W = k_cache.shape[1], k_buf.shape[1]
+
+    def bias(n, valid):
+        return torch.where(torch.arange(n, device=q.device)[None, :] < valid,
+                           0.0, NEG_INF).to(torch.float32)
+    part_c = _partial_sdpa(cfg, qg, k_cache, v_cache, bias(S, base_len))
+    part_b = _partial_sdpa(cfg, qg, k_buf, v_buf, bias(W, buf_len))
+    out = merge_partials([part_c, part_b])                     # (B,H,G,1,D)
+    return out.movedim(3, 1).reshape(B, 1, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +384,6 @@ def cross_attention(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     """Decoder cross-attention against precomputed encoder K/V, unmasked
     (the reference's ``attend_full(causal=False)``), routed by
     :func:`attend`: the kernel under ``backend="cuda"``."""
-    dt = x.dtype
-    B, S = x.shape[:2]
-    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = split_heads(x @ p.wq.to(x.dtype), cfg.num_heads, cfg.head_dim)
     k, v = enc_kv
     return out_proj(cfg, p, attend(cfg, q, k, v, causal=False, backend=backend))

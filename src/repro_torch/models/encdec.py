@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import attn_options, checkpointed
+from repro_torch.parallel.sharding import spmd
 
 Cache = Dict[str, torch.Tensor]
 
@@ -94,6 +95,7 @@ def _enc_layer(cfg: ModelConfig, lp: EncoderLayer, x, backend: str):
     return x + L.apply_mlp(cfg, lp.mlp, h)
 
 
+@spmd
 def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor, *,
            backend: str = "cuda", ctx=None) -> torch.Tensor:
     """frames: (B, encoder_seq, d_model) precomputed embeddings -> the
@@ -101,6 +103,8 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor, *,
     layer is checkpointed unless ``ctx.remat`` is ``"none"``."""
     dt = L.torch_dtype(cfg.dtype)
     x = frames.to(dt) + params.enc_pos.to(dt)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
     run = _layer_runner(_enc_layer, ctx)
     for lp in params.encoder:
         x = run(cfg, lp, x, backend)
@@ -120,13 +124,17 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _dec_layer(cfg: ModelConfig, lp: DecoderLayer, x, enc_out, positions, chunk: int,
-               schedule: str, backend: str):
+               schedule: str, backend: str, ctx=None):
     h = L.apply_norm(cfg, lp.norm1, x)
     x = x + attn_lib.self_attention(cfg, lp.attn, h, positions, chunk=chunk,
                                     schedule=schedule, backend=backend)
-    return _cross_and_mlp(cfg, lp, x, attn_lib.kv_proj(cfg, lp.xattn, enc_out), backend)
+    x = _cross_and_mlp(cfg, lp, x, attn_lib.kv_proj(cfg, lp.xattn, enc_out), backend)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
+    return x
 
 
+@spmd
 def forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
             frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda", ctx=None):
     """Teacher-forced decoder forward -> (logits (B, S, V), aux = 0).
@@ -138,13 +146,14 @@ def forward(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     x = L.embed_tokens(cfg, params.embed, tokens, positions)
     run = _layer_runner(_dec_layer, ctx)
     for lp in params.decoder:
-        x = run(cfg, lp, x, enc_out, positions, chunk, schedule, backend)
+        x = run(cfg, lp, x, enc_out, positions, chunk, schedule, backend, ctx)
     x = L.apply_norm(cfg, params.final_norm, x)
     return L.unembed(cfg, params.embed, x), torch.zeros((), dtype=torch.float32,
                                                         device=x.device)
 
 
 @torch.no_grad()
+@spmd
 def prefill(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
             frames: torch.Tensor, *, chunk: int = 512, backend: str = "cuda", ctx=None):
     """(last logits (B, V), cache with the self K/V of S positions and the
@@ -174,6 +183,7 @@ def prefill(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+@spmd
 def decode_step(cfg: ModelConfig, params: EncDec, cache: Cache, tokens: torch.Tensor,
                 index: int):
     """One-token decode -> (logits (B, V), cache with k / v written in

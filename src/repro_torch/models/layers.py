@@ -7,7 +7,15 @@ the reference takes the dict. Params are stored in ``param_dtype``
 (float32) and cast to the compute ``dtype`` (bfloat16) at use; norm
 statistics run in float32. Weights are drawn from an explicit
 ``torch.Generator``; ``gen=None`` leaves them uninitialised, to be loaded
-(:func:`repro_torch.models.model_zoo.params_from_numpy`).
+(:func:`repro_torch.models.model_zoo.params_from_numpy`) or shapes only
+on the ``meta`` device (``train.steps.abstract_train_state``: nothing
+drawn, nothing allocated).
+
+The same functions run the model's sharded run, on DTensor parameters
+and activations (:func:`repro_torch.parallel.sharding.shard_params`):
+the embedding is a lookup (``F.embedding``) that DTensor runs on a
+``vocab``-sharded table, rows sharded, and every cast of a float32
+weight to the compute type (``.to(dt)``) keeps the weight's placement.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import is_dtensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -130,13 +139,25 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
     ``positions`` (B, S) given, plus their position rows."""
     dt = torch_dtype(cfg.dtype)
     # rows gathered, then cast: the values of the reference's cast table
-    x = p.embedding[tokens].to(dt)
+    x = _summed(F.embedding(tokens, p.embedding)).to(dt)
     if cfg.embedding_scale:
         # the scale is rounded to the compute type before the multiply
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt)
     if cfg.position == "learned" and positions is not None:
-        x = x + p.pos_embedding[positions].to(dt)
+        x = x + _summed(F.embedding(positions, p.pos_embedding)).to(dt)
     return x
+
+
+def _summed(rows: torch.Tensor) -> torch.Tensor:
+    """A lookup in a row-sharded DTensor table comes back partial (each
+    rank holds the rows of its slice of the vocab): its sum, replicated
+    where it was partial, so that the cotangent reaches the lookup
+    replicated. Plain tensors pass through."""
+    if not is_dtensor(rows):
+        return rows
+    from torch.distributed.tensor import Replicate
+    return rows.redistribute(rows.device_mesh, tuple(
+        Replicate() if pl.is_partial() else pl for pl in rows.placements))
 
 
 def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:

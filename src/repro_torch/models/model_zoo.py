@@ -25,7 +25,18 @@ backward.
 the reference passes it: MoE layers take ``moe_sharded`` under a context
 with ``use_ep``, attention its chunk and schedule, training its ``remat``.
 :func:`batch_specs` and :func:`cache_specs` give the partition specs of a
-batch and a cache by their keys (``model_zoo.py:198-223``).
+batch and a cache by their keys (``model_zoo.py:198-223``), and
+:func:`batch_placements` / :func:`cache_placements` their DTensor
+placements.
+
+The sharded run: :meth:`Model.shard` turns the parameters into DTensors
+placed by the reference's ``param_shardings`` over the context's mesh
+(:func:`repro_torch.parallel.sharding.shard_params`); a batch distributed
+by :func:`batch_placements` then runs through the same ``loss``,
+``prefill`` and ``forward`` functions, whose activations the context
+constrains where the reference constrains them. ``loss`` returns a
+plain (replicated) loss, so ``torch.autograd`` takes it as it is; the
+gradients are DTensors.
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ from torch import nn
 from repro_torch.configs.base import KERNEL_BACKENDS, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer, xlstm, zamba
-from repro_torch.parallel.sharding import ParallelContext
+from repro_torch.parallel.sharding import ParallelContext, is_dtensor, shard_params, spmd
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
@@ -71,6 +82,13 @@ class Model:
             torch.Generator(device=self.device).manual_seed(int(seed))
         return init_params(gen, self.cfg, self.device)
 
+    def shard(self, params: nn.Module) -> nn.Module:
+        """``params`` as DTensors over the context's mesh on the model's
+        device, placed by ``param_shardings`` (in place; returned)."""
+        if self.ctx is None:
+            raise ValueError("Model.shard needs a parallel context (build_model(cfg, ctx))")
+        return shard_params(params, self.ctx, self.device)
+
     # -- training -----------------------------------------------------------
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -78,7 +96,17 @@ class Model:
         transformer also takes ``mask`` and ``positions``, the audio family
         needs ``frames``), differentiable in ``params``. Attention runs
         through the ``"torch"`` backend, as the reference trains through
-        its jnp attention."""
+        its jnp attention. On a sharded model the loss and its metrics are
+        returned replicated, as plain tensors."""
+        loss, metrics = self._loss(params, batch)
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
+        return loss, metrics
+
+    @spmd
+    def _loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         c, ctx = self.cfg, self.ctx
         if c.xlstm is not None:
             logits, aux, _ = xlstm.xlstm_forward(c, params, batch["tokens"], ctx=ctx)
@@ -186,28 +214,44 @@ def _map_leaves(fn, tree):
 def batch_specs(ctx: ParallelContext, struct, is_mrope: bool = False):
     """Partition specs of a batch (a dict of tensors or anything with
     ``shape``), by key."""
-    def f(key, leaf):
-        nd = len(leaf.shape)
-        if key == "positions":
-            logical = (None, "batch", None) if nd == 3 else ("batch", None)
-        else:
-            logical = _BATCH_LOGICAL.get(key, (None,) * nd)
-        if len(logical) != nd:
-            logical = (None,) * nd
-        return ctx.spec_for(tuple(leaf.shape), logical)
-    return _map_leaves(f, struct)
+    return _map_leaves(lambda k, leaf: ctx.spec_for(tuple(leaf.shape),
+                                                    _batch_logical(k, leaf)), struct)
+
+
+def _batch_logical(key, leaf):
+    nd = len(leaf.shape)
+    if key == "positions":
+        logical = (None, "batch", None) if nd == 3 else ("batch", None)
+    else:
+        logical = _BATCH_LOGICAL.get(key, (None,) * nd)
+    return logical if len(logical) == nd else (None,) * nd
+
+
+def _cache_logical(key, leaf):
+    nd = len(leaf.shape)
+    logical = _CACHE_LOGICAL.get(key, (None,) * nd)
+    # slstm/mlstm "m"/"n" collide across dicts; fix rank mismatches
+    return logical if len(logical) == nd else ("layers", "batch") + (None,) * (nd - 2)
 
 
 def cache_specs(ctx: ParallelContext, struct):
     """Partition specs of a cache (nested dicts of tensors), by key."""
-    def f(key, leaf):
-        nd = len(leaf.shape)
-        logical = _CACHE_LOGICAL.get(key, (None,) * nd)
-        # slstm/mlstm "m"/"n" collide across dicts; fix rank mismatches
-        if len(logical) != nd:
-            logical = ("layers", "batch") + (None,) * (nd - 2)
-        return ctx.spec_for(tuple(leaf.shape), logical)
-    return _map_leaves(f, struct)
+    return _map_leaves(lambda k, leaf: ctx.spec_for(tuple(leaf.shape),
+                                                    _cache_logical(k, leaf)), struct)
+
+
+def batch_placements(ctx: ParallelContext, struct) -> Dict[str, tuple]:
+    """``{dotted key: DTensor placements}`` of a batch, by key, as
+    :func:`batch_specs` (for :func:`repro_torch.parallel.sharding.distribute`)."""
+    return dict(_flatten(_map_leaves(lambda k, leaf: ctx.placements_for(
+        tuple(leaf.shape), _batch_logical(k, leaf)), struct)))
+
+
+def cache_placements(ctx: ParallelContext, struct) -> Dict[str, tuple]:
+    """``{dotted key: DTensor placements}`` of a cache, by key, as
+    :func:`cache_specs`."""
+    return dict(_flatten(_map_leaves(lambda k, leaf: ctx.placements_for(
+        tuple(leaf.shape), _cache_logical(k, leaf)), struct)))
 
 
 SEQ_KEYS = ("k", "v", "attn_k", "attn_v")   # caches that grow along axis 2

@@ -22,7 +22,8 @@ Counterpart of ``repro.models.moe`` (its ``moe.py:30-216``):
   the expert's capacity, sends the kept tokens to their expert's rank in
   an ``(M, E_loc, C, d)`` buffer by ``all_to_all``, runs its experts'
   FFNs and sends the results back for the weighted combine; the batch
-  slices are gathered over ``dp_axes`` at the end. The capacity is the
+  slices are gathered over ``dp_axes`` at the end (or, on DTensors, stay
+  sharded). The capacity is the
   reference's ``max(8, ceil(chunk * k * capacity_factor / E))`` in
   float64. It falls back to the dense path when E does not divide the
   axis, and replicates the batch when B does not divide ``dp_axes``;
@@ -30,7 +31,10 @@ Counterpart of ``repro.models.moe`` (its ``moe.py:30-216``):
   :func:`moe_sharded`, none (or ``use_ep`` off) :func:`moe_dense`.
 
 Inputs are the whole batch and the whole parameters on every rank (the
-model runs replicated); the expert dispatch is the only sharded step.
+model runs replicated; the expert dispatch is the only sharded step), or
+DTensors of the model's sharded run. Either way every rank's gradients
+are those of the global loss, as ``jax.grad`` of the reference gives
+them.
 :func:`dispatch_record` collects each dispatch's slot and drop counts.
 """
 from __future__ import annotations
@@ -45,6 +49,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, normal, param, torch_dtype
+from repro_torch.parallel.sharding import is_dtensor
 
 
 class MoE(nn.Module):
@@ -190,11 +195,28 @@ def _dispatch_compute_local(cfg: ModelConfig, mesh, ep_axis: str, capacity: int,
 def moe_sharded(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, mesh, dp_axes,
                 ep_axis: str, capacity_factor: float = 1.25,
                 token_chunk: int = 8192) -> Tuple[torch.Tensor, torch.Tensor]:
-    """EP MoE. x: (B, S, d), the whole batch on every rank. Experts are
-    split over ``ep_axis``, the batch over ``dp_axes``; falls back to the
-    dense path when the experts do not divide the axis. Returns the whole
-    (B, S, d) output on every rank and the aux loss."""
-    from repro_torch.parallel.compat import all_gather, axis_index, axis_size
+    """EP MoE. x: (B, S, d), the whole batch on every rank, or a DTensor.
+    Experts are split over ``ep_axis``, the batch over ``dp_axes``; falls
+    back to the dense path when the experts do not divide the axis.
+
+    On plain tensors it returns the whole (B, S, d) output on every rank
+    and the aux loss. The gradients are those of the global loss on every
+    rank, as ``jax.grad`` through the reference's ``shard_map`` gives
+    them: the gather's backward takes this rank's slice of the replicated
+    cotangent, and the dispatch's partial gradients of x, the routing
+    weights and the experts are summed over the mesh and divided by the
+    ranks that hold each data shard (R = mesh size / data shards: each
+    shard's tokens are dispatched by R ranks, its experts' outputs reach
+    M = the expert axis's size copies), which is the reference's division
+    of the output's cotangent by its unmentioned axes.
+
+    On a DTensor x (and DTensor parameters) it routes on the DTensors,
+    dispatches this rank's local shard of the batch with its local
+    experts, and returns a DTensor sharded as the reference's ``spec_x``.
+    The experts' gradients come back ``Partial`` over the other axes,
+    divided by R."""
+    from repro_torch.parallel.compat import (all_gather, axis_index, axis_size,
+                                             grad_psum)
     m = cfg.moe
     M = mesh.shape.get(ep_axis, 1)
     if m.num_experts % max(M, 1) != 0:
@@ -216,20 +238,40 @@ def moe_sharded(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, mesh, dp_axes,
         raise ValueError(f"{T_loc} local tokens do not split into {n_chunks} chunks "
                          f"of {chunk}")
     Bl = B // dp_size
-    b0 = axis_index(mesh, dp_axes) * Bl
     E_loc = m.num_experts // M
-    e0 = axis_index(mesh, ep_axis) * E_loc
-    wg, wu, wd = (w[e0:e0 + E_loc].to(dt) for w in (p.w_gate, p.w_up, p.w_down))
-
-    xf = x[b0:b0 + Bl].reshape(Bl * S, d)
-    twf = top_w[b0:b0 + Bl].reshape(Bl * S, m.top_k).to(dt)
-    tif = top_i[b0:b0 + Bl].reshape(Bl * S, m.top_k)
+    # ranks that dispatch each data shard
+    R = int(np.prod(list(mesh.shape.values()), dtype=np.int64)) // dp_size
+    weights = (p.w_gate, p.w_up, p.w_down)
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        dmesh = x.device_mesh
+        spec_x = tuple(Shard(0) if a in dp_axes else Replicate() for a in mesh.axis_names)
+        spec_w = tuple(Shard(0) if a == ep_axis else Replicate() for a in mesh.axis_names)
+        grad_w = tuple(Shard(0) if a == ep_axis else Partial() for a in mesh.axis_names)
+        xf, twf, tif = (t.redistribute(dmesh, spec_x).to_local()
+                        for t in (x, top_w.to(dt), top_i))
+        wg, wu, wd = (grad_psum(w.to(dt).redistribute(dmesh, spec_w)
+                                .to_local(grad_placements=grad_w), mesh, scale=1.0 / R)
+                      for w in weights)
+    else:
+        b0 = axis_index(mesh, dp_axes) * Bl
+        e0 = axis_index(mesh, ep_axis) * E_loc
+        x = grad_psum(x, mesh, mesh.axis_names, 1.0 / R)
+        top_w = grad_psum(top_w, mesh, mesh.axis_names, 1.0 / R)
+        wg, wu, wd = (grad_psum(w, mesh, mesh.axis_names, 1.0 / R)[e0:e0 + E_loc].to(dt)
+                      for w in weights)
+        xf, twf, tif = x[b0:b0 + Bl], top_w[b0:b0 + Bl].to(dt), top_i[b0:b0 + Bl]
+    xf = xf.reshape(Bl * S, d)
+    twf = twf.reshape(Bl * S, m.top_k)
+    tif = tif.reshape(Bl * S, m.top_k)
     ys = [_dispatch_compute_local(cfg, mesh, ep_axis, capacity,
                                   xf[i * chunk:(i + 1) * chunk],
                                   twf[i * chunk:(i + 1) * chunk],
                                   tif[i * chunk:(i + 1) * chunk], wg, wu, wd)
           for i in range(n_chunks)]
     y = (ys[0] if n_chunks == 1 else torch.cat(ys)).reshape(Bl, S, d)
+    if is_dtensor(x):
+        return DTensor.from_local(y, dmesh, spec_x, run_check=False), aux
     # the batch slices back in order, the last dp axis the minor one
     for a in reversed(dp_axes):
         y = all_gather(y, mesh, a)

@@ -1,7 +1,7 @@
 """Decoder-only transformer assembly: the dense, MoE and M-RoPE (VLM)
 families.
 
-Counterpart of ``repro.models.transformer`` (its ``transformer.py:30-230``).
+Counterpart of ``repro.models.transformer`` (its ``transformer.py:30-290``).
 One ``nn.Module`` per decoder layer (:class:`DecoderLayer`: ``norm1``,
 ``attn``, ``norm2``, then ``mlp``, or ``moe`` and with a dense residual
 ``dense_mlp``) and one for the LM (:class:`LM`: ``embed``, ``layers``,
@@ -28,6 +28,12 @@ chunk and schedule come from its ``attn_chunk`` / ``attn_schedule``
 :func:`prefill` and :func:`decode_step` run under ``torch.no_grad``.
 :func:`lm_loss` trains through the ``"torch"`` attention, as the reference
 trains through its jnp attention: the hand-written kernel has no backward.
+
+The buffered decode (:func:`init_kv_buffer`, :func:`decode_step_buffered`,
+:func:`flush_buffer`) reads the cache and never writes it: each step
+writes its token's K/V into a W-slot buffer (in place) and attends over
+both sources (:func:`repro_torch.models.attention.decode_attend_buffered`);
+a flush writes the buffer into the cache every W steps.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.parallel.sharding import is_dtensor, spmd
 
 Cache = Dict[str, torch.Tensor]
 
@@ -112,9 +119,13 @@ def apply_layer(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
     h = attn_lib.self_attention(cfg, p.attn, h, positions,
                                 window=cfg.sliding_window, chunk=chunk,
                                 schedule=schedule, backend=backend)
+    if ctx:
+        h = ctx.constrain(h, ("batch", "seq", "embed"))
     x = x + h
     h = L.apply_norm(cfg, p.norm2, x)
     h, aux = _ffn(cfg, p, h, ctx)
+    if ctx:
+        h = ctx.constrain(h, ("batch", "seq", "embed"))
     return x + h, aux
 
 
@@ -155,6 +166,7 @@ def _embed(cfg: ModelConfig, params: LM, tokens, positions) -> torch.Tensor:
                           lpos if cfg.position == "learned" else None)
 
 
+@spmd
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             chunk: int = 512, schedule: str = "rect",
             backend: str = "cuda", ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -163,6 +175,8 @@ def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
     ``ctx.remat`` is ``"none"``."""
     positions = _positions_for(cfg, tokens, positions)
     x = _embed(cfg, params, tokens, positions)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     run = (functools.partial(checkpoint, apply_layer, use_reentrant=False,
                              preserve_rng_state=False)
@@ -172,7 +186,10 @@ def forward(cfg: ModelConfig, params: LM, tokens, positions=None, *,
                    backend=backend, ctx=ctx)
         aux = aux + a
     x = L.apply_norm(cfg, params.final_norm, x)
-    return L.unembed(cfg, params.embed, x), aux
+    logits = L.unembed(cfg, params.embed, x)
+    if ctx:
+        logits = ctx.constrain(logits, ("batch", "seq", "vocab"))
+    return logits, aux
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -185,16 +202,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
+@spmd
 def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
             chunk: int = 512, schedule: str = "rect",
             backend: str = "cuda", ctx=None) -> Tuple[torch.Tensor, Cache]:
     """Forward + emit KV caches -> (logits_last (B, V), cache of S
-    positions, each layer's K/V written into it in place)."""
+    positions, each layer's K/V written into it in place). On a sharded
+    model (DTensors) the cache is the layers' K/V stacked, as the
+    reference's scan emits it."""
     chunk, schedule = attn_options(ctx, chunk, schedule)
     B, S = tokens.shape
     positions = _positions_for(cfg, tokens, positions)
     x = _embed(cfg, params, tokens, positions)
-    cache = init_kv_cache(cfg, B, S, device=tokens.device)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
+    sharded = is_dtensor(x)
+    cache = None if sharded else init_kv_cache(cfg, B, S, device=tokens.device)
+    ks, vs = [], []
     for i, layer in enumerate(params.layers):
         h = L.apply_norm(cfg, layer.norm1, x)
         q, k, v = attn_lib.qkv_proj(cfg, layer.attn, h)
@@ -207,13 +231,24 @@ def prefill(cfg: ModelConfig, params: LM, tokens, positions=None, *,
         h = L.apply_norm(cfg, layer.norm2, x)
         h, _ = _ffn(cfg, layer, h, ctx)
         x = x + h
-        attn_lib.cache_update(cache["k"][i], cache["v"][i], k, v, 0)
+        if ctx:
+            x = ctx.constrain(x, ("batch", "seq", "embed"))
+            k = ctx.constrain(k, ("batch", "kv_seq", "kv_heads", "head_dim"))
+            v = ctx.constrain(v, ("batch", "kv_seq", "kv_heads", "head_dim"))
+        if sharded:
+            ks.append(k.to(L.torch_dtype(cfg.dtype)))
+            vs.append(v.to(L.torch_dtype(cfg.dtype)))
+        else:
+            attn_lib.cache_update(cache["k"][i], cache["v"][i], k, v, 0)
+    if sharded:
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     x = L.apply_norm(cfg, params.final_norm, x[:, -1:, :])
     logits = L.unembed(cfg, params.embed, x)[:, 0, :]
     return logits, cache
 
 
 @torch.no_grad()
+@spmd
 def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
                 positions=None, ctx=None) -> Tuple[torch.Tensor, Cache]:
     """One-token decode. tokens: (B, 1); index: tokens already cached.
@@ -233,6 +268,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Cache, tokens, index: int,
     return logits, cache
 
 
+@spmd
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor], *,
             chunk: int = 512, ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["mask"]`` (default: every
@@ -253,3 +289,65 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor], *,
     xent = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     loss = xent + aux
     return loss, {"xent": xent, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Buffered decode: a read-only cache and a write buffer
+# ---------------------------------------------------------------------------
+
+def init_kv_buffer(cfg: ModelConfig, batch: int, window: int, dtype=None,
+                   device=None) -> Cache:
+    """The write buffer ``{"k", "v"}``: (L, B, W, Hkv, D) zeros."""
+    dt = dtype or L.torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, window, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+@torch.no_grad()
+def decode_step_buffered(cfg: ModelConfig, params: LM, cache: Cache, buffer: Cache,
+                         tokens, base_len: int, buf_len: int,
+                         ctx=None) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode against a read-only cache plus a small write buffer.
+
+    cache k/v: (L, B, S, Hkv, D) holds the first ``base_len`` tokens and
+    is not written; buffer k/v: (L, B, W, Hkv, D) holds ``buf_len`` recent
+    tokens and takes this token's K/V at ``buf_len`` (in place, the start
+    clamped as ``dynamic_update_slice`` clamps it). The position is
+    ``base_len + buf_len`` (on every plane under M-RoPE); the embedding
+    adds no learned position, as in the reference. Returns (logits (B, V),
+    buffer)."""
+    B = tokens.shape[0]
+    index = int(base_len) + int(buf_len)
+    positions = torch.full((B, 1), index, dtype=torch.int32, device=tokens.device)
+    if cfg.position == "mrope":
+        positions = positions.expand(3, B, 1)
+    x = L.embed_tokens(cfg, params.embed, tokens)
+    for i, layer in enumerate(params.layers):
+        h = L.apply_norm(cfg, layer.norm1, x)
+        q, k, v = attn_lib.qkv_proj(cfg, layer.attn, h)
+        if cfg.position in attn_lib.ROTARY:
+            q = L.apply_rope(cfg, q, positions)
+            k = L.apply_rope(cfg, k, positions)
+        kb, vb = attn_lib.cache_update(buffer["k"][i], buffer["v"][i], k, v, buf_len)
+        o = attn_lib.decode_attend_buffered(cfg, q, cache["k"][i], cache["v"][i], kb, vb,
+                                            base_len, buf_len + 1)
+        x = x + attn_lib.out_proj(cfg, layer.attn, o)
+        h = L.apply_norm(cfg, layer.norm2, x)
+        h, _ = _ffn(cfg, layer, h, ctx)
+        x = x + h
+    x = L.apply_norm(cfg, params.final_norm, x)
+    logits = L.unembed(cfg, params.embed, x)[:, 0, :]
+    return logits, buffer
+
+
+@torch.no_grad()
+def flush_buffer(cfg: ModelConfig, cache: Cache, buffer: Cache, base_len: int) -> Cache:
+    """Write the whole buffer into the cache at ``base_len``, in place (a
+    start past ``S - W`` is clamped, as ``dynamic_update_slice`` clamps
+    it); the W decode steps between flushes write only the buffer."""
+    for key in ("k", "v"):
+        c, b = cache[key], buffer[key]
+        start = attn_lib.update_start(base_len, b.shape[2], c.shape[2])
+        c[:, :, start:start + b.shape[2]] = b.to(c.dtype)
+    return cache

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, normal, param, torch_dtype
+from repro_torch.parallel.sharding import spmd
 
 State = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -234,13 +235,17 @@ def init_xlstm_state(cfg: ModelConfig, batch: int, device=None):
             "slstm": stack(init_slstm_state(cfg, batch, device))}
 
 
-def _pair(cfg: ModelConfig, pair, x, m_st, s_st):
+def _pair(cfg: ModelConfig, pair, x, m_st, s_st, ctx=None):
     h, m_st = apply_mlstm(cfg, pair.mlstm, L.apply_norm(cfg, pair.norm_m, x), m_st)
     x = x + h
     h, s_st = apply_slstm(cfg, pair.slstm, L.apply_norm(cfg, pair.norm_s, x), s_st)
-    return x + h, m_st, s_st
+    x = x + h
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
+    return x, m_st, s_st
 
 
+@spmd
 def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state=None,
                   ctx=None):
     """(logits (B, S, V), aux = 0, new state) from ``state`` (the initial
@@ -252,11 +257,13 @@ def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state
            if ctx is not None and ctx.remat == "layer" and torch.is_grad_enabled()
            else _pair)
     x = L.embed_tokens(cfg, params.embed, tokens)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
     ms, ss = [], []
     for i, pair in enumerate(params.pairs):
         m_st = None if state is None else {k: t[i] for k, t in state["mlstm"].items()}
         s_st = None if state is None else {k: t[i] for k, t in state["slstm"].items()}
-        x, m_st, s_st = run(cfg, pair, x, m_st, s_st)
+        x, m_st, s_st = run(cfg, pair, x, m_st, s_st, ctx)
         ms.append(m_st)
         ss.append(s_st)
     x = L.apply_norm(cfg, params.final_norm, x)
@@ -267,6 +274,7 @@ def xlstm_forward(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, state
 
 
 @torch.no_grad()
+@spmd
 def xlstm_prefill(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, ctx=None):
     """(last logits (B, V), the state after the prompt)."""
     logits, _, state = xlstm_forward(cfg, params, tokens, ctx=ctx)
@@ -274,6 +282,7 @@ def xlstm_prefill(cfg: ModelConfig, params: XLSTMLM, tokens: torch.Tensor, ctx=N
 
 
 @torch.no_grad()
+@spmd
 def xlstm_decode_step(cfg: ModelConfig, params: XLSTMLM, state, tokens: torch.Tensor,
                       index: int, ctx=None):
     """One-token decode (``index`` unused: the recurrent state carries no

@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import apply_mamba2, init_mamba2, init_mamba_state
 from repro_torch.models.transformer import attn_options
+from repro_torch.parallel.sharding import spmd
 
 Cache = Dict[str, object]
 
@@ -70,9 +71,12 @@ def init_zamba(gen, cfg: ModelConfig, device=None) -> Zamba:
     return Zamba(cfg, gen, device)
 
 
-def _mamba_layer(cfg: ModelConfig, lp: MambaLayer, x, state, single_step: bool):
+def _mamba_layer(cfg: ModelConfig, lp: MambaLayer, x, state, single_step: bool,
+                 ctx=None):
     h = L.apply_norm(cfg, lp.norm, x)
     h, state = apply_mamba2(cfg, lp.mixer, h, state, single_step=single_step)
+    if ctx:
+        h = ctx.constrain(h, ("batch", "seq", "embed"))
     return x + h, state
 
 
@@ -81,6 +85,7 @@ def _shared_mlp(cfg: ModelConfig, sa: SharedAttention, x):
     return x + L.apply_mlp(cfg, sa.mlp, h)
 
 
+@spmd
 def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
                   state: Optional[Cache] = None, *, emit_cache: bool = False,
                   chunk: int = 512, backend: str = "cuda", ctx=None):
@@ -99,6 +104,8 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = L.embed_tokens(cfg, params.embed, tokens)
+    if ctx:
+        x = ctx.constrain(x, ("batch", "seq", "embed"))
     G, per = n_groups(cfg), cfg.attn_every
     sa = params.shared_attn
     dt = L.torch_dtype(cfg.dtype)
@@ -107,7 +114,7 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
         for j in range(per):
             i = g * per + j
             st = None if state is None else {k: t[i] for k, t in state["mamba"].items()}
-            x, st = layer(cfg, params.mamba_layers[i], x, st, single_step=False)
+            x, st = layer(cfg, params.mamba_layers[i], x, st, False, ctx)
             states.append(st)
         h = L.apply_norm(cfg, sa.norm1, x)
         q, k, v = attn_lib.qkv_proj(cfg, sa.attn, h)
@@ -116,11 +123,15 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
         o = attn_lib.attend(cfg, q, k, v, causal=True, chunk=chunk, schedule=schedule,
                             backend=backend)
         x = _shared_mlp(cfg, sa, x + attn_lib.out_proj(cfg, sa.attn, o))
+        if ctx:
+            x = ctx.constrain(x, ("batch", "seq", "embed"))
         if emit_cache:
             ks.append(k.to(dt))
             vs.append(v.to(dt))
     x = L.apply_norm(cfg, params.final_norm, x)
     logits = L.unembed(cfg, params.embed, x)
+    if ctx:
+        logits = ctx.constrain(logits, ("batch", "seq", "vocab"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     if emit_cache:
@@ -130,6 +141,7 @@ def zamba_forward(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+@spmd
 def zamba_prefill(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor, *,
                   backend: str = "cuda", ctx=None):
     """(last logits (B, V), cache of S positions)."""
@@ -139,6 +151,7 @@ def zamba_prefill(cfg: ModelConfig, params: Zamba, tokens: torch.Tensor, *,
 
 
 @torch.no_grad()
+@spmd
 def zamba_decode_step(cfg: ModelConfig, params: Zamba, cache: Cache,
                       tokens: torch.Tensor, index: int):
     """One-token decode: each layer's Mamba2 single step and each group's

@@ -15,6 +15,17 @@ device, as the reference computes them in float32.
 per-layer tensor after another (the reference sums its stacked leaves in
 sorted-key order); the two sums differ in the float32 rounding of their
 order only.
+
+On a sharded model (DTensor parameters,
+:func:`repro_torch.parallel.sharding.shard_params`) the moments are
+DTensors placed as their parameters (the q8 scales with their last dim
+whole), a gradient that arrives ``Partial`` (over the data axis) is
+reduced to its parameter's placements first, and the norm is the global
+one. The int8 blocks run along the last dim, as in JAX's global
+computation: where that dim is sharded, a rank's slice is not a whole
+number of blocks (the smoke configs' 32-wide slices against
+``Q_BLOCK`` 128), so the q8 update gathers each row first and quantizes
+the rank's rows whole.
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel.sharding import is_dtensor, spmd
 
 
 @dataclass(frozen=True)
@@ -64,18 +77,32 @@ def _step0(params) -> torch.Tensor:
 
 def init_opt_state(params) -> Dict[str, Any]:
     leaves = named_leaves(params)
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
                      for n, p in leaves.items()}
     return {"mu": zeros(), "nu": zeros(), "step": _step0(params)}
 
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+    """The float32 norm of all leaves (a plain tensor, DTensor leaves
+    included)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in named_leaves(tree).values()) + 1e-20)
+    return norm.full_tensor() if is_dtensor(norm) else norm
 
 
 @torch.no_grad()
+def reduce_grads(grads, params) -> Dict[str, torch.Tensor]:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a ``Partial`` sum over the data axis reduced); plain ones as they
+    are."""
+    leaves = named_leaves(params)
+    return {n: g.redistribute(leaves[n].device_mesh, leaves[n].placements)
+            if is_dtensor(g) else g for n, g in named_leaves(grads).items()}
+
+
+@torch.no_grad()
+@spmd
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by ``min(1, max_norm / (norm + 1e-9))`` as float32,
     norm). float32 gradients are scaled in place."""
@@ -92,11 +119,12 @@ def _corrections(cfg: AdamWConfig, opt_state):
 
 
 @torch.no_grad()
+@spmd
 def adamw_update(cfg: AdamWConfig, grads, params, opt_state
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step -> (params, opt_state, {"grad_norm", "lr"}); the
     parameters and moments are written in place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(reduce_grads(grads, params), cfg.clip_norm)
     step, lr, bc1, bc2 = _corrections(cfg, opt_state)
     b1, b2 = cfg.b1, cfg.b2
     mus, nus = opt_state["mu"], opt_state["nu"]
@@ -145,9 +173,25 @@ def _q8_decode(codes: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return x.reshape(cp.shape)[..., : shape[-1]]
 
 
+def _rows(p) -> tuple:
+    """A DTensor's placements with its last dim whole (``Shard(last)`` ->
+    ``Replicate()``): those of its q8 scales, and where its blocks are
+    quantized."""
+    from torch.distributed.tensor import Replicate
+    last = p.ndim - 1
+    return tuple(Replicate() if pl.is_shard() and pl.dim % p.ndim == last else pl
+                 for pl in p.placements)
+
+
 def init_opt_state_q8(params) -> Dict[str, Any]:
     def enc_zero(p):
-        c, s = _q8_encode(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+        # _q8_encode of zeros, built directly: codes 0, scales 0 / 127 + 1e-12
+        c = torch.zeros_like(p, dtype=torch.int8, requires_grad=False)
+        s = torch.full(tuple(p.shape[:-1]) + (-(-p.shape[-1] // Q_BLOCK),), 1e-12,
+                       dtype=torch.float32, device=p.device)
+        if is_dtensor(p):
+            from torch.distributed.tensor import distribute_tensor
+            s = distribute_tensor(s, p.device_mesh, _rows(p), src_data_rank=None)
         return {"q": c, "s": s}
     leaves = named_leaves(params)
     return {"mu": {n: enc_zero(p) for n, p in leaves.items()},
@@ -156,6 +200,7 @@ def init_opt_state_q8(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
+@spmd
 def adamw_update_q8(cfg: AdamWConfig, grads, params, opt_state):
     """AdamW with int8 moments. Same signature and return as
     :func:`adamw_update`; codes and scales are rewritten in place.
@@ -165,12 +210,13 @@ def adamw_update_q8(cfg: AdamWConfig, grads, params, opt_state):
     its moments never holds the whole slab. The port's leaves are per
     layer already: the loop over them decodes one layer's slab of one
     leaf at a time, the scan's granularity, and splits nothing further."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(reduce_grads(grads, params), cfg.clip_norm)
     step, lr, bc1, bc2 = _corrections(cfg, opt_state)
     b1, b2 = cfg.b1, cfg.b2
     mus, nus = opt_state["mu"], opt_state["nu"]
-    for name, p in named_leaves(params).items():
-        g, mq, nq = grads[name].to(torch.float32), mus[name], nus[name]
+
+    def update(g, p, mq, nq):
+        """One leaf on plain tensors, written in place."""
         mu = _q8_decode(mq["q"], mq["s"], p.shape)
         nu = _q8_decode(nq["q"], nq["s"], p.shape)
         mu = b1 * mu + (1 - b1) * g
@@ -182,6 +228,23 @@ def adamw_update_q8(cfg: AdamWConfig, grads, params, opt_state):
             codes, scales = _q8_encode(moment)
             state["q"].copy_(codes)
             state["s"].copy_(scales)
+
+    for name, p in named_leaves(params).items():
+        g, mq, nq = grads[name].to(torch.float32), mus[name], nus[name]
+        if not is_dtensor(p):
+            update(g, p, mq, nq)
+            continue
+        # whole rows on each rank: its slice of every leaf, gathered along
+        # the last dim, updated, and written back to its placements
+        from torch.distributed.tensor import DTensor
+        mesh, rows = p.device_mesh, _rows(p)
+        whole = [t.redistribute(mesh, rows).to_local()
+                 for t in (g, p, mq["q"], mq["s"], nq["q"], nq["s"])]
+        update(whole[0], whole[1], {"q": whole[2], "s": whole[3]},
+               {"q": whole[4], "s": whole[5]})
+        for dst, src in zip((p, mq["q"], mq["s"], nq["q"], nq["s"]), whole[1:]):
+            dst.copy_(DTensor.from_local(src, mesh, rows, run_check=False)
+                      .redistribute(mesh, dst.placements))
     return params, {"mu": mus, "nu": nus, "step": step}, {"grad_norm": gnorm, "lr": lr}
 
 

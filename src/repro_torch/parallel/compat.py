@@ -15,9 +15,16 @@ themselves, each over the process group of one mesh axis:
 * :func:`make_mesh`;
 * :func:`axis_size`, :func:`axis_index`, and over one axis's group
   :func:`all_to_all` (differentiable: its backward is the reverse
-  exchange), :func:`all_gather` (differentiable), :func:`psum` /
-  :func:`pmean` and :func:`ppermute` (pairs of axis indices, sent by
-  ``batch_isend_irecv``; a pair from a rank to itself is a copy).
+  exchange), :func:`all_gather` (differentiable, of slices of a value
+  every rank then holds replicated: its backward takes this rank's own
+  slice of the cotangent and sums nothing), :func:`psum` / :func:`pmean`
+  and :func:`ppermute` (pairs of axis indices, sent by
+  ``batch_isend_irecv``; a pair from a rank to itself is a copy);
+* :func:`grad_psum`: the identity whose backward sums the cotangent over
+  some axes and scales it (the transpose of JAX's implicit broadcast of a
+  replicated value into ``shard_map``). Both skip axes of size 1;
+* :func:`device_mesh`: the ``torch.distributed`` ``DeviceMesh`` over a
+  mesh's own process groups and axis names, for DTensors.
 
 ``shard_map`` has no counterpart: the port's sharded functions
 (``models.moe.moe_sharded``, ``parallel.pipeline``) take this rank's
@@ -131,12 +138,84 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return all_to_all_single(torch.empty_like(x), x, group=mesh.group(axis))
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """Slices gathered along ``dim`` into a value every rank holds whole.
+    The cotangent of that value is replicated too, so the backward takes
+    this rank's own slice of it; a sum over the ranks would count it once
+    per rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.n, ctx.index, ctx.dim = n, index, dim
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.index], None, None, None, None
+
+
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
-    """The axis's slices of ``x`` concatenated along ``dim`` in axis order
-    (differentiable)."""
-    from torch.distributed.nn.functional import all_gather as _all_gather
-    parts = _all_gather(x.contiguous(), group=mesh.group(axis))
-    return torch.cat(list(parts), dim=dim)
+    """The axis's slices of ``x`` concatenated along ``dim`` in axis order,
+    a value every rank of the axis then holds (differentiable: the
+    backward returns this rank's slice of the cotangent). An axis of size
+    1 gathers nothing."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    return _GatherReplicated.apply(x, mesh.group(axis), n, axis_index(mesh, axis), dim)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, scale):
+        ctx.groups, ctx.scale = groups, scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a fresh buffer: the reduce writes in place
+        g = (g * ctx.scale if ctx.scale != 1.0 else g.clone()).contiguous()
+        for group in ctx.groups:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        return g, None, None
+
+
+def grad_psum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str] = (),
+              scale: float = 1.0) -> torch.Tensor:
+    """``x`` in the forward; in the backward its cotangent times ``scale``,
+    summed over ``axes`` (axes of size 1 skipped). Returns ``x`` itself
+    when there is nothing to do."""
+    groups = [mesh.group(a) for a in axes if axis_size(mesh, a) > 1]
+    if not groups and scale == 1.0:
+        return x
+    return _SumGrad.apply(x, groups, float(scale))
+
+
+def device_mesh(mesh: Mesh, device="cuda"):
+    """The ``DeviceMesh`` of ``mesh`` on ``device``'s type, with the same
+    axis names, over the mesh's own process groups (no group is made;
+    the ranks lie row-major, as :func:`make_mesh` lays them out). Built
+    once a mesh and device type. ``device="cuda"`` needs a card."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.device import resolve_device
+    kind = resolve_device(device).type
+    cache = mesh.__dict__.setdefault("_device_meshes", {})
+    if kind not in cache:
+        if mesh.groups is None:
+            raise RuntimeError(f"mesh {mesh.shape} has no ranks: no DeviceMesh (build it "
+                               "with make_mesh inside a torch.distributed process group)")
+        shape = tuple(mesh.shape.values())
+        n = int(np.prod(shape))
+        # a one-rank mesh may be one rank of a larger job
+        ranks = torch.arange(n) if n > 1 else torch.tensor([dist.get_rank()])
+        cache[kind] = DeviceMesh.from_group(
+            [mesh.group(a) for a in mesh.axis_names], kind,
+            mesh=ranks.reshape(shape), mesh_dim_names=mesh.axis_names)
+    return cache[kind]
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

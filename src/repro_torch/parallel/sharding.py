@@ -14,12 +14,22 @@ rule set serves all ten architectures.
   entries of JAX's ``PartitionSpec``;
 * ``placements_for``, the torch counterpart of ``sharding_for``: one
   DTensor placement (``Shard(dim)`` / ``Replicate()``) per mesh axis;
-* ``constrain``: the identity on plain tensors. GSPMD sharding
-  constraints have no eager counterpart until the model runs as DTensors;
+* ``constrain``, the counterpart of ``with_sharding_constraint``: it
+  redistributes a DTensor to ``placements_for`` its logical axes and
+  returns a plain tensor unchanged (a model that runs replicated has
+  nothing to constrain);
 * :func:`single_device_context`: a (1, 1) mesh over a one-rank process
   group (``gloo`` on the CPU, ``nccl`` on the card), made in the process
   over a ``HashStore`` when no group exists, the existing one reused when
-  it does;
+  it does, and its one-rank ``DeviceMesh`` (:func:`compat.device_mesh`);
+* the model's sharded run: :func:`shard_params` turns parameters (a
+  module, in place, or a mapping such as the optimizer's moments) into
+  DTensors placed by :func:`param_shardings`, each rank keeping its slice
+  of the full tensor it holds, as JAX's ``NamedSharding`` gives it;
+  :func:`distribute` does the same for any tree and placements (a batch,
+  a cache); :func:`spmd` runs a model function with the plain tensors it
+  meets (constants, positions, masks) taken as replicated DTensors, so
+  the model's code is the same for both runs;
 * :func:`logical_axes_for_leaf` and :func:`param_specs` over the port's
   dotted parameter names (``layers.3.attn.wq``, ``layers.3.moe.w_gate``,
   the int8 moments' ``...w_gate.q`` / ``.s``). The port keeps one tensor
@@ -29,6 +39,8 @@ rule set serves all ten architectures.
 """
 from __future__ import annotations
 
+import functools
+import sys
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -38,7 +50,7 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.parallel.compat import Mesh
+from repro_torch.parallel.compat import Mesh, device_mesh
 
 LogicalAxes = Tuple[Optional[str], ...]
 
@@ -147,10 +159,37 @@ class ParallelContext:
                      for a in self.mesh.axis_names)
 
     def constrain(self, x: torch.Tensor, logical: LogicalAxes) -> torch.Tensor:
-        """The identity: a GSPMD sharding constraint has no eager
-        counterpart on a plain tensor (the model does not run as DTensors
-        yet)."""
-        return x
+        """``with_sharding_constraint`` by logical axes: a DTensor is
+        redistributed to :meth:`placements_for` its shape; a plain tensor
+        (the replicated model) is returned unchanged."""
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(x.device_mesh, self.placements_for(tuple(x.shape), logical))
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (without importing DTensor when no
+    module has)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def spmd(fn):
+    """Run ``fn`` with DTensor's implicit replication: a plain tensor that
+    meets a DTensor in an op is taken as replicated, as a constant is in
+    a JAX program under ``jit``. Nothing changes for plain tensors."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if "torch.distributed.tensor" not in sys.modules:
+            return fn(*args, **kwargs)
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+        # the context is not re-entrant: its exit switches the mode off
+        if DTensor._op_dispatcher._allow_implicit_replication:
+            return fn(*args, **kwargs)
+        with implicit_replication():
+            return fn(*args, **kwargs)
+    return run
 
 
 def _one_rank_group(dev: torch.device):
@@ -176,6 +215,7 @@ def single_device_context(device="cuda", **kw) -> ParallelContext:
     names = ("data", "model")
     mesh = Mesh((1, 1), names, devices=np.array([[dev]], dtype=object),
                 groups={n: group for n in names}, rank=0)
+    device_mesh(mesh, dev)
     return ParallelContext(mesh=mesh, **kw)
 
 
@@ -275,3 +315,45 @@ def param_shardings(ctx: ParallelContext, params) -> Dict[str, tuple]:
     return {name: ctx.placements_for(tuple(leaf.shape), logical_axes_for_leaf(name, leaf))
             for name, leaf in _leaves(params)}
 
+
+# ---------------------------------------------------------------------------
+# The sharded run: parameters and batches as DTensors
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def distribute(tree, placements: Mapping[str, Any], ctx: ParallelContext, device="cuda"):
+    """A (nested) mapping of full tensors -> the same mapping of DTensors
+    over ``ctx``'s mesh, each placed by ``placements`` (``{dotted name:
+    placements}``, as :func:`param_shardings` gives them). Every rank
+    keeps its own slice of the full tensor it holds: nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+    dm = device_mesh(ctx.mesh, device)
+
+    def walk(node, prefix):
+        out = {}
+        for key, val in node.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, Mapping):
+                out[key] = walk(val, name + ".")
+            else:
+                out[key] = distribute_tensor(val.detach().to(dm.device_type), dm,
+                                             placements[name], src_data_rank=None)
+        return out
+    return walk(tree, "")
+
+
+def shard_params(model_or_params, ctx: ParallelContext, device="cuda"):
+    """Parameters as DTensors placed by :func:`param_shardings`: a module's
+    parameters are replaced in place (trainable as before) and the module
+    is returned; a mapping (the optimizer's moments) gives a new mapping.
+    ``device="cuda"`` needs a card."""
+    if not isinstance(model_or_params, nn.Module):
+        return distribute(model_or_params, param_shardings(ctx, model_or_params), ctx, device)
+    module = model_or_params
+    named = dict(module.named_parameters())
+    sharded = distribute(named, param_shardings(ctx, module), ctx, device)
+    for name, p in named.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner) if owner else module, leaf,
+                nn.Parameter(sharded[name], requires_grad=p.requires_grad))
+    return module

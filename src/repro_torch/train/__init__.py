@@ -1,6 +1,7 @@
 """The port's training path: step builders (:mod:`steps`) and the trainer
 (:mod:`trainer`)."""
 from repro_torch.train.steps import (  # noqa: F401
+    abstract_train_state,
     build_decode_step,
     build_prefill_step,
     build_train_step,

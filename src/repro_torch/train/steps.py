@@ -6,12 +6,14 @@ Counterpart of ``repro.train.steps`` (its ``steps.py:22-119``), with
 ``{"params": LM, "opt": {"mu", "nu", "step"}}`` (see
 :mod:`repro_torch.optim.adamw`); a step writes it in place and returns it.
 Every parameter must get a gradient: a parameter that the loss does not
-reach raises (``torch.autograd.grad`` without ``allow_unused``).
+reach raises (``torch.autograd.grad`` without ``allow_unused``). The step
+is the same on a sharded model (DTensor parameters from
+:meth:`repro_torch.models.model_zoo.Model.shard`): the loss comes back
+replicated, the gradients as DTensors, and the optimizer reduces them.
 
-The reference's ``abstract_train_state`` (a shape-only state for
-``lower()`` / ``compile()`` in the multi-pod dry run) is left out: its
-only users are the dry-run launchers, which wait for ``parallel/``
-(ROADMAP A4).
+:func:`abstract_train_state` is the reference's shape-only state: the
+parameters and moments on the ``meta`` device, nothing allocated and
+nothing drawn.
 
 :func:`train_state_from_numpy` carries the reference's train state
 across, so one step can start from the same state in both packages.
@@ -25,8 +27,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model_zoo import (Model, check_keys, params_from_numpy,
-                                          per_layer_arrays)
+from repro_torch.models.model_zoo import (Model, check_keys, init_params,
+                                          params_from_numpy, per_layer_arrays)
+from repro_torch.parallel.sharding import spmd
 from repro_torch.optim.adamw import (Q_BLOCK, AdamWConfig, adamw_update, adamw_update_q8,
                                      global_norm, init_opt_state, init_opt_state_q8)
 
@@ -46,6 +49,18 @@ def init_train_state(model: Model, seed, *, optimizer: str = "adamw") -> TrainSt
     return {"params": params, "opt": init_fn(params)}
 
 
+def abstract_train_state(model: Model, seed=None, *, optimizer: str = "adamw") -> TrainState:
+    """The train state's shapes and dtypes, for planning: the parameters
+    (the assembly's module) and the optimizer's moments and step on the
+    ``meta`` device. Nothing is allocated and no weight is drawn, so
+    ``seed`` (kept for the reference's signature) is not used."""
+    _check_optimizer(optimizer)
+    del seed
+    params = init_params(None, model.cfg, torch.device("meta"))
+    init_fn = init_opt_state_q8 if optimizer == "adamw_q8" else init_opt_state
+    return {"params": params, "opt": init_fn(params)}
+
+
 def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
                      microbatches: int = 1, optimizer: str = "adamw",
                      accum_dtype=torch.float32):
@@ -60,6 +75,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
     _check_optimizer(optimizer)
     update_fn = adamw_update_q8 if optimizer == "adamw_q8" else adamw_update
 
+    @spmd   # the backward of a sharded model meets the same plain constants
     def single(params, batch):
         names, leaves = zip(*params.named_parameters())
         loss, metrics = model.loss(params, batch)

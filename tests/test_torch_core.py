@@ -274,8 +274,9 @@ def test_params_from_numpy_match_port_params(flags):
 def test_port_imports_no_jax_and_nothing_of_repro():
     """No module of the port nor chip_smoke.py imports jax or the JAX
     package, by source and at run time (the simulator, the traces, the
-    search with its objectives and driver, parallel/, the launchers and
-    the expert-parallel MoE)."""
+    search with its objectives and fig_search, parallel/ with the sharded run,
+    the launchers, the expert-parallel MoE, the model zoo and the train
+    steps with the buffered decode and the abstract state)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)", re.M)
     files = list((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
@@ -285,7 +286,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.benchmarks.fig_search, repro_torch.parallel, "
             "repro_torch.parallel.compat, repro_torch.parallel.compression, "
             "repro_torch.parallel.pipeline, repro_torch.launch.mesh, "
-            "repro_torch.launch.train, repro_torch.models.moe; "
+            "repro_torch.launch.train, repro_torch.models.moe, "
+            "repro_torch.models.model_zoo, repro_torch.train.steps; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
@@ -308,9 +310,10 @@ def test_parallel_entry_points_default_to_cuda():
 
     from repro_torch.experiments import executor
     from repro_torch.models import build_model
-    from repro_torch.parallel import single_device_context
+    from repro_torch.parallel import device_mesh, shard_params, single_device_context
+    from repro_torch.parallel.sharding import distribute
     for fn in (single_device_context, build_model, executor.execute,
-               executor.group_cache_keys):
+               executor.group_cache_keys, shard_params, device_mesh, distribute):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -318,3 +321,8 @@ def test_parallel_entry_points_default_to_cuda():
         single_device_context("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         single_device_context()
+    ctx = single_device_context("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mesh(ctx.mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_params({"w": torch.zeros(2, 2)}, ctx)

@@ -386,6 +386,86 @@ def test_prefill_and_decode_match(arch, dtype):
             _close(tcache[key], jcache[key], **tol)
 
 
+BUFFERED = ("qwen2-vl-72b-smoke", "granite-3-2b-smoke")
+
+
+def _buffered_setup(arch, B=2, PRE=8, W=4):
+    """The reference's and the port's caches after a PRE-token prefill,
+    padded to PRE + W rows, and empty W-slot buffers."""
+    jc, tc, params, lm = _setup(arch)
+    jt, tt = _tokens(tc, B, PRE + W, seed=3)
+    _, jcache = JT.prefill(jc, None, params, jt[:, :PRE])
+    _, tcache = T.prefill(tc, lm, tt[:, :PRE])
+    jcache, tcache = j_pad_cache(jcache, PRE + W), pad_cache(tcache, PRE + W)
+    return (jc, tc, params, lm, jt, tt, jcache, tcache, JT.init_kv_buffer(jc, B, W),
+            T.init_kv_buffer(tc, B, W, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", BUFFERED)
+def test_buffered_decode_matches_reference(arch):
+    """decode_step_buffered from base_len 8 with a 4-slot buffer: logits
+    and buffers at each step against the reference's, the cache never
+    written; flush_buffer's cache at base_len 8 and at a start past
+    S - W (clamped, as dynamic_update_slice clamps it), f32 tight."""
+    PRE, W = 8, 4
+    jc, tc, params, lm, jt, tt, jcache, tcache, jbuf, tbuf = _buffered_setup(arch, PRE=PRE,
+                                                                           W=W)
+    before = {k: v.clone() for k, v in tcache.items()}
+    for i in range(W):
+        jl, jbuf = JT.decode_step_buffered(jc, None, params, jcache, jbuf,
+                                           jt[:, PRE + i:PRE + i + 1],
+                                           jnp.asarray(PRE, jnp.int32), jnp.asarray(i, jnp.int32))
+        tl, got = T.decode_step_buffered(tc, lm, tcache, tbuf, tt[:, PRE + i:PRE + i + 1], PRE, i)
+        assert got is tbuf                              # written in place
+        _close(tl, jl, **F32)
+        for key in ("k", "v"):
+            _close(tbuf[key], jbuf[key], **F32)
+            assert torch.equal(tcache[key], before[key])    # the cache is read only
+    for start in (PRE, PRE + W - 1):                    # the second start is clamped
+        jm = JT.flush_buffer(jc, jcache, jbuf, jnp.asarray(start, jnp.int32))
+        tm = T.flush_buffer(tc, {k: v.clone() for k, v in tcache.items()}, tbuf, start)
+        for key in ("k", "v"):
+            _close(tm[key], jm[key], **F32)
+            np.testing.assert_array_equal(tm[key][:, :, -W:].numpy(), tbuf[key].numpy())
+
+
+@pytest.mark.parametrize("arch", BUFFERED)
+def test_buffered_decode_matches_plain_decode(arch):
+    """As ``tests/test_models.py`` holds the reference: the buffered steps'
+    logits equal the in-place decode's on the same tokens and positions,
+    and after the flush the cache's new rows equal the in-place decode's
+    (layer 0 bit for bit: its K/V come from the token alone; the later
+    layers' inputs went through the two-source softmax, within F32)."""
+    PRE, W = 8, 4
+    _, tc, _, lm, _, tt, _, tcache, _, tbuf = _buffered_setup(arch, PRE=PRE, W=W)
+    plain = {k: v.clone() for k, v in tcache.items()}
+    for i in range(W):
+        t = PRE + i
+        want, plain = T.decode_step(tc, lm, plain, tt[:, t:t + 1], t)
+        got, tbuf = T.decode_step_buffered(tc, lm, tcache, tbuf, tt[:, t:t + 1], PRE, i)
+        _close(got, want.numpy(), **F32)
+    merged = T.flush_buffer(tc, tcache, tbuf, PRE)
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(merged[key][0].numpy(), plain[key][0].numpy())
+        _close(merged[key], plain[key].numpy(), **F32)
+
+
+def test_partial_softmax_of_an_empty_source_weighs_nothing():
+    """base_len 0: the cache source has no valid row, its partial sits at
+    the finite NEG_INF and the merge gives the buffer's attention alone,
+    finite, equal to the reference's."""
+    jc, tc = j_get_config("granite-3-2b-smoke"), get_config("granite-3-2b-smoke")
+    (jq, jk, jv), (q, k, v) = _qkv(tc, 2, 1, 12, "float32", seed=21)
+    kb, vb = k[:, :4], v[:, :4]
+    got = A.decode_attend_buffered(tc, q, k, v, kb, vb, 0, 3)
+    want = JA.decode_attend_buffered(jc, jq, jk, jv, jk[:, :4], jv[:, :4],
+                                     jnp.asarray(0, jnp.int32), jnp.asarray(3, jnp.int32))
+    assert torch.isfinite(got).all()
+    _close(got, want, **F32)
+    alone = A.decode_attend(tc, q, kb, vb, 3)
+    _close(got, alone.numpy(), **F32)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_teacher_forcing(arch):
     """prefill + step-by-step decode logits == full forward logits (the

@@ -9,12 +9,15 @@ and the train launcher's parallel context against the JAX reference.
   - at (1, 1) in this process: the port on ``single_device_context``'s
     one-rank gloo group, the reference on its one-device mesh; and the
     gradients of the output and the aux loss against ``jax.grad``;
-  - at (1, 2), (2, 2) and (1, 4), and with a batch of 1 that (2, 2)
-    cannot split: the port's ranks as ``gloo`` processes (one spawn per
-    world size for the module, a ``FileStore`` under ``tmp_path``), the
-    reference in one JAX subprocess with 4 host devices
+  - at (2, 1), (1, 2), (2, 2) and (1, 4), and with a batch of 1 that
+    (2, 2) cannot split: the port's ranks as ``gloo`` processes (one spawn
+    per world size for the module, a ``FileStore`` under ``tmp_path``),
+    the reference in one JAX subprocess with 4 host devices
     (``--xla_force_host_platform_device_count=4``), its results in an npz;
-    every rank returns the whole output;
+    every rank returns the whole output; and every rank's gradients of
+    ``sum(y * r) + aux`` by the parameters and the input equal to
+    ``jax.grad`` of the reference's and to each other's (the (1, 2) cases
+    have a data axis of size 1);
   - at (1, 3) both fall back to the dense path (8 experts do not split
     over 3);
   outputs and aux within MOE_TOL (float32 GEMMs in either library's
@@ -69,12 +72,15 @@ LOSS_RTOL = 1e-5
 CASES = {
     "11": ((1, 1), 1.25, 8192, "x"), "11d": ((1, 1), 0.5, 32, "x"),
     "12": ((1, 2), 1.25, 8192, "x"), "12d": ((1, 2), 0.5, 32, "x"),
+    "21": ((2, 1), 1.25, 8192, "x"), "21d": ((2, 1), 0.5, 32, "x"),
     "22": ((2, 2), 1.25, 8192, "x"), "22d": ((2, 2), 0.5, 32, "x"),
     "22r": ((2, 2), 0.5, 8192, "x1"),
     "14": ((1, 4), 1.25, 8192, "x"), "14d": ((1, 4), 0.5, 32, "x"),
     "13": ((1, 3), 0.5, 8192, "x"),
 }
-DROPPING = ("11d", "12d", "22d", "22r", "14d")
+DROPPING = ("11d", "12d", "21d", "22d", "22r", "14d")
+SEVERAL = ["12", "12d", "21", "21d", "22", "22d", "22r", "14", "14d"]
+PARAMS = ("router", "w_gate", "w_up", "w_down")
 
 
 def _cfg(registry, **moe):
@@ -90,7 +96,9 @@ def _inputs():
     n = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
     return {"router": n(d, E, s=d ** -0.5), "w_gate": n(E, d, f, s=d ** -0.5),
             "w_up": n(E, d, f, s=d ** -0.5), "w_down": n(E, f, d, s=f ** -0.5),
-            "x": n(B, S, d), "x1": n(1, 2 * S, d)}
+            "x": n(B, S, d), "x1": n(1, 2 * S, d),
+            # cotangent weights of the gradient checks' loss sum(y * r) + aux
+            "r_x": n(B, S, d), "r_x1": n(1, 2 * S, d)}
 
 
 def _port_moe(arrays):
@@ -216,10 +224,18 @@ REFERENCE = textwrap.dedent("""
     out = {}
     for name, (shape, cf, chunk, xname) in cases.items():
         mesh = make_host_mesh(*shape)
-        y, aux = jax.jit(lambda p, x: JM.moe_sharded(
+        fn = lambda p, x: JM.moe_sharded(
             cfg, p, x, mesh=mesh, dp_axes=("data",), ep_axis="model",
-            capacity_factor=cf, token_chunk=chunk))(p, jnp.asarray(inp[xname]))
+            capacity_factor=cf, token_chunk=chunk)
+        y, aux = jax.jit(fn)(p, jnp.asarray(inp[xname]))
         out[name], out[name + "_aux"] = np.asarray(y), np.asarray(aux)
+        if shape != (1, 3):
+            r = jnp.asarray(inp["r_" + xname])
+            loss = lambda p, x: (lambda y, aux: jnp.sum(y * r) + aux)(*fn(p, x))
+            gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, jnp.asarray(inp[xname]))
+            for k in p:
+                out[name + "_g_" + k] = np.asarray(gp[k])
+            out[name + "_g_x"] = np.asarray(gx)
     np.savez(sys.argv[2], **out)
 """)
 
@@ -245,10 +261,17 @@ PORT = textwrap.dedent("""
     out = {}
     for name, (shape, cf, chunk, xname) in cases.items():
         mesh = make_mesh(shape, ("data", "model"))
+        x = torch.from_numpy(inp[xname]).requires_grad_(True)
+        for k in ("router", "w_gate", "w_up", "w_down"):
+            getattr(p, k).grad = None
         with M.dispatch_record() as rec:
-            y, aux = M.moe_sharded(cfg, p, torch.from_numpy(inp[xname]), mesh=mesh,
+            y, aux = M.moe_sharded(cfg, p, x, mesh=mesh,
                                    dp_axes=("data",), ep_axis="model",
                                    capacity_factor=cf, token_chunk=chunk)
+        (torch.sum(y * torch.from_numpy(inp["r_" + xname])) + aux).backward()
+        for k in ("router", "w_gate", "w_up", "w_down"):
+            out[name + "_g_" + k] = getattr(p, k).grad.numpy().copy()
+        out[name + "_g_x"] = x.grad.numpy()
         out[name], out[name + "_aux"] = y.detach().numpy(), aux.detach().numpy()
         out[name + "_drops"] = np.int64(sum(int(r["dropped"]) for r in rec))
         out[name + "_at"] = np.array([mesh.coords["data"], mesh.coords["model"]])
@@ -295,12 +318,13 @@ def sharded(tmp_path_factory):
         cases = {k: v for k, v in CASES.items() if np.prod(v[0]) == world}
         for r, out in enumerate(_spawn(world, cases, tmp, inputs)):
             for name in cases:
-                ranks.setdefault(name, []).append({s: out[name + s]
-                                                   for s in ("", "_aux", "_drops", "_at")})
+                ranks.setdefault(name, []).append(
+                    {s: out[name + s] for s in ("", "_aux", "_drops", "_at", "_g_x")
+                     + tuple("_g_" + k for k in PARAMS)})
     return arrays, dict(np.load(ref_out)), ranks
 
 
-@pytest.mark.parametrize("case", ["12", "12d", "22", "22d", "22r", "14", "14d"])
+@pytest.mark.parametrize("case", SEVERAL)
 def test_moe_sharded_matches_reference_across_ranks(sharded, case):
     """Every rank's output and aux equal to the reference's shard_map run;
     the slots dropped over the data shards (each counted on its model-index
@@ -320,6 +344,22 @@ def test_moe_sharded_matches_reference_across_ranks(sharded, case):
     assert drops == _ref_drops(jcfg, jp, jnp.asarray(arrays[xname]), shape, cf, chunk)
     if case in DROPPING:
         assert drops > 0
+
+
+@pytest.mark.parametrize("case", SEVERAL)
+def test_moe_sharded_gradients_across_ranks(sharded, case):
+    """Every rank's gradients by the router, the experts and the input are
+    the global loss's: equal on every rank, and to jax.grad through the
+    reference's shard_map within GRAD_TOL (slots drop in the ``d`` and
+    ``r`` cases; the (1, 2) cases have a data axis of size 1)."""
+    _, ref, ranks = sharded
+    outs = ranks[case]
+    for part in ("_g_x",) + tuple("_g_" + k for k in PARAMS):
+        for out in outs[1:]:
+            np.testing.assert_array_equal(out[part], outs[0][part], err_msg=part)
+        want = ref[case + part]
+        np.testing.assert_allclose(outs[0][part], want, rtol=GRAD_TOL["rtol"],
+                                   atol=GRAD_TOL["atol"] * np.abs(want).max(), err_msg=part)
 
 
 def test_moe_sharded_dense_fallback(sharded):

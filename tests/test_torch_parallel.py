@@ -60,7 +60,8 @@ from repro_torch.configs.base import FamConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.experiments import executor as tex
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models.model_zoo import batch_specs, cache_specs, init_params
+from repro_torch.models.model_zoo import (batch_placements, batch_specs, cache_placements,
+                                          cache_specs, init_params)
 from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import compression as TC
 from repro_torch.parallel.compat import Mesh
@@ -182,6 +183,29 @@ def _meta_tree(tree):
     if isinstance(tree, dict):
         return {k: _meta_tree(v) for k, v in tree.items()}
     return torch.empty(tree.shape, device="meta")
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_batch_and_cache_placements_follow_the_specs(mesh):
+    """batch_placements / cache_placements of every config's cells: per
+    key, one placement a mesh axis, ``Shard(d)`` exactly where the
+    reference's spec puts that axis on dim d."""
+    jctx, ctx = _contexts(mesh)
+    for arch in ARCH_IDS:
+        jm = j_build_model(j_get_config(arch), jctx)
+        for shape in jm.cfg.shapes():
+            for struct, jfn, fn in ((jm.batch_struct(shape), j_batch_specs, batch_placements),
+                                    (jm.cache_struct(shape), j_cache_specs, cache_placements)):
+                specs, _ = jax.tree_util.tree_flatten_with_path(
+                    jfn(jctx, struct), is_leaf=lambda x: isinstance(x, PartitionSpec))
+                got = fn(ctx, _meta_tree(struct))
+                assert got.keys() == {_dotted(path) for path, _ in specs}
+                for path, spec in specs:
+                    for ax, pl in zip(ctx.mesh.axis_names, got[_dotted(path)]):
+                        on = [d for d, e in enumerate(spec)
+                              if e == ax or (isinstance(e, tuple) and ax in e)]
+                        assert (pl.is_shard(on[0]) if on else pl.is_replicate()), \
+                            (arch, _dotted(path), ax, pl, spec)
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])

@@ -49,8 +49,9 @@ from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model, pad_cache
 from repro_torch.models.model_zoo import per_layer_arrays
 from repro_torch.optim import adamw as O
-from repro_torch.train.steps import (build_decode_step, build_prefill_step,
-                                     build_train_step, init_train_state,
+from repro_torch.configs.registry import ARCH_IDS
+from repro_torch.train.steps import (abstract_train_state, build_decode_step,
+                                     build_prefill_step, build_train_step, init_train_state,
                                      train_state_from_numpy)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -609,3 +610,59 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys, optimizer):
     assert resumed.restarts == 1 and resumed.steps == 2
     with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 devices, found 1"):
         train_launch.main(argv + ["--production"])
+
+
+# ---------------------------------------------------------------------------
+# the abstract train state
+# ---------------------------------------------------------------------------
+
+def _shape_leaves(tree, prefix=""):
+    """{dotted name: (shape, dtype)} of a nested mapping of tensors, every
+    one on ``meta``."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_shape_leaves(val, name + "."))
+        else:
+            assert val.is_meta, name
+            out[name] = (tuple(val.shape), val.dtype)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_train_state_matches_eval_shape(arch):
+    """At the published widths, with adamw and adamw_q8: every leaf of the
+    port's state is on ``meta`` (nothing allocated) and its shape and
+    dtype are those of ``jax.eval_shape`` of the reference's, leaf for leaf
+    by dotted name (a per-layer leaf against its stacked leaf without the
+    layer axis)."""
+    jm = j_build_model(j_get_config(arch), None)
+    model = build_model(get_config(arch), device="cpu")
+    stacks = {"layers", "mamba_layers", "pairs", "encoder", "decoder"}
+    for optimizer in ("adamw", "adamw_q8"):
+        want = JS.abstract_train_state(jm, optimizer=optimizer)
+        state = abstract_train_state(model, optimizer=optimizer)
+        params = dict(state["params"].named_parameters())
+        moments = {"mu": state["opt"]["mu"], "nu": state["opt"]["nu"]}
+        got = _shape_leaves({"params": params, "opt": moments})
+        step = state["opt"]["step"]
+        assert all(p.device.type == "meta" for p in params.values()) and step.is_meta
+        assert step.dtype == torch.int32 and want["opt"]["step"].shape == ()
+        covered = set()
+        for name, (shape, dtype) in got.items():
+            parts = name.split(".")
+            stacked = ".".join(p for p in parts if not p.isdigit())
+            leaf = functools.reduce(lambda t, k: t[k], stacked.split("."), want)
+            wshape = tuple(leaf.shape)
+            if any(p.isdigit() for p in parts):
+                assert parts[parts.index(next(p for p in parts if p.isdigit())) - 1] in stacks
+                wshape = wshape[1:]
+            assert shape == wshape, (name, shape, wshape)
+            assert dtype == torch.from_numpy(np.zeros((), leaf.dtype)).dtype, name
+            covered.add(stacked)
+        ref = {".".join(str(getattr(k, "key", k)) for k in path)
+               for path, _ in jax.tree_util.tree_flatten_with_path(
+                   {"params": want["params"], "opt": {"mu": want["opt"]["mu"],
+                                                      "nu": want["opt"]["nu"]}})[0]}
+        assert covered == ref, sorted(covered ^ ref)
