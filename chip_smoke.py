@@ -267,7 +267,9 @@ code != 0):
 17. the throughput benchmark (``bench_famsim``): the quick grid on both
    backends, BENCH_REPEATS executions each, digests equal; then the full
    grid (fig08 over all 19 workloads, 228 systems x 12,000 events) on
-   ``cuda`` once; events/s/device, best replay seconds and captures;
+   ``cuda`` once; events/s/device, best replay seconds and captures; each
+   run's roofline record (``roofline/famsim_step.json`` under a
+   temporary ``--out``);
 18. the design-space search (``repro_torch.search``) through
    ``fig_search``'s driver at its quick defaults (the evolutionary
    proposer over the traced-only default space, population 6, 3
@@ -297,7 +299,20 @@ code != 0):
    then a plan of one runner key with other traced params than the plan
    that cached it (WFQ weight, backlog cap, ``bw_adapt``, the token
    bucket's rates), with telemetry off and on, replayed from the cached
-   graph: every metric equal to a fresh capture's bit for bit.
+   graph: every metric equal to a fresh capture's bit for bit;
+19. roofline (``repro_torch.roofline``): counted work against the H100's
+   peaks (bounds, not measurements) beside times the phases above
+   measured, none timed again: (a) one granite-moe-1b-a400m train step at
+   TRAIN_BATCH x TRAIN_SEQ under the op counter: counted FLOPs and bytes,
+   model flops, compute / memory seconds, ``mfu_bound``, the measured MFU
+   and the counted FLOP/s against phase train's hand count; (b)
+   granite-3-2b's prefill at SERVE_BATCH x SERVE_PROMPT through the
+   ``cuda`` backend (the ``flash_attention`` charge) and the ``torch``
+   backend: the charge equal to the ``torch`` attention's dots, the terms
+   and the measured MFU at phase serving's prefill; (c) phase bench's
+   records: bytes and the memory bound an event against the measured
+   time an event. (d), a dry-run cell at 256 fake ranks, is left out
+   (ROOFLINE_DRYRUN_LEFT_OUT).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last two lines of standard output are the kernel table
@@ -1888,7 +1903,8 @@ def serving_path(torch):
     per layer of the prefill, none in decode); then the same model and
     params teacher-forced on the generated tokens with the kernel backend
     (timed per stage) and the torch backend, every logit and the prefill's
-    K/V cache within SERVE_TOL; one profiled prefill and decode step."""
+    K/V cache within SERVE_TOL; one profiled prefill and decode step.
+    Returns (the launches, the kernel backend's prefill seconds)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1986,9 +2002,10 @@ def serving_path(torch):
           f"= {sum(fa) / 1e3 / busy:.2%} of the prefill's device time; one decode step "
           f"{d_wall * 1e3:.3f} ms wall, device busy {d_busy:.3f} ms "
           f"({d_busy / 1e3 / d_wall:.2%}), {len(d_events)} device kernels", flush=True)
+    prefill_s = kern["prefill_s"]
     del params, kern, ref
     torch.cuda.empty_cache()
-    return launched
+    return launched, prefill_s
 
 
 # --------------------------------------------------------------------------
@@ -4131,14 +4148,20 @@ def bench(torch):
     """Phase 17: ``bench --quick --repeats BENCH_REPEATS`` on both cache-step
     backends (digests equal, asserted by the benchmark), then the full grid
     (fig08 over all 19 workloads) on ``cuda`` once; the counts read around
-    each: t_pad launches a ``cuda`` execution, none on ``torch``."""
+    each: t_pad launches a ``cuda`` execution, none on ``torch``. Each run
+    writes its roofline record (``roofline/famsim_step.json``) under a
+    temporary ``--out``; they are returned under ``"roofline"``."""
+    import tempfile
     from repro_torch.benchmarks import bench_famsim
-    out = {}
+    out = {"roofline": {}}
     for quick, argv in ((True, ["--quick", "--repeats", str(BENCH_REPEATS)]),
                         (False, ["--kernel-backend", "cuda", "--repeats", "1"])):
         empty_runner_cache()
         reset_counts()
-        rows = bench_famsim.main(argv + ["--device", DEVICE])
+        with tempfile.TemporaryDirectory() as tmp:
+            rows = bench_famsim.main(argv + ["--device", DEVICE, "--out", tmp])
+            out["roofline"]["quick" if quick else "full"] = json.loads(
+                (Path(tmp) / bench_famsim.ROOFLINE).read_text())
         launched = counts()
         t_pad = bench_famsim._experiment("cuda", quick).plan().groups
         executions = BENCH_REPEATS if quick else 1
@@ -4154,6 +4177,145 @@ def bench(torch):
                   f"digest {r['digest']}", flush=True)
         out["quick" if quick else "full"] = rows
     return out
+
+
+# --------------------------------------------------------------------------
+# phase roofline: counted work beside the times phases train, serving and
+# bench measured (nothing is timed again)
+# --------------------------------------------------------------------------
+
+#: (d), one dry-run cell at 256 fake ranks, is left out: whisper-base
+#: decode_32k (`python -m repro_torch.launch.dryrun --arch whisper-base
+#: --shape decode_32k --device cuda`) took 27.93 s on the H100's host
+#: (torch 2.11.0+cu128; the cell 14.55 s, the rest the process's start),
+#: over the 20 s the phase may spend on it
+ROOFLINE_DRYRUN_LEFT_OUT = ("whisper-base decode_32k at 256 fake ranks took 27.93 s with its "
+                            "process's start (the cell 14.55 s), over 20 s")
+
+
+def _terms_line(terms):
+    return (f"compute_s {terms.compute_s:.6g}, memory_s {terms.memory_s:.6g} "
+            f"({terms.bottleneck} bound), mfu_bound {terms.mfu_bound:.4%}")
+
+
+def _roofline_train(torch, train):
+    """(a): one adamw train step of TRAIN_ARCH at TRAIN_BATCH x TRAIN_SEQ
+    (phase train's step) under the op counter on the card, beside phase
+    train's measured step."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.analysis import H100_SXM, analyze
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.train.steps import build_train_step, init_train_state
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=DEVICE)
+    state = init_train_state(model, SERVE_SEED)
+    step = build_train_step(model, AdamWConfig(**TRAIN_OPT))
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH)).batch(0, DEVICE)
+    with OpCounter() as counter:
+        state, metrics = step(state, batch)
+    check(bool(np.isfinite(float(metrics["loss"]))), "the counted train step's loss")
+    del state, metrics
+    torch.cuda.empty_cache()
+    model_flops = model_flops_for(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    terms = analyze(counter, chips=1, model_flops=model_flops)
+    step_s = train["step_ms"] / 1e3
+    share = terms.flops_per_device / step_s / H100_SXM.peak_flops
+    hand = train["flops_all"] / step_s / H100_SXM.peak_flops
+    print(f"roofline (a) train {cfg.name} B {TRAIN_BATCH} x S {TRAIN_SEQ}, one card: counted "
+          f"{terms.flops_per_device:.6e} FLOPs (matmuls; FlopCounterMode's "
+          f"{terms.xla_flops_once:.6e}), {terms.bytes_per_device:.6e} B; model flops "
+          f"{model_flops:.6e} (6 x {cfg.active_param_count()} active x "
+          f"{TRAIN_BATCH * TRAIN_SEQ}); {_terms_line(terms)}; measured step (phase train) "
+          f"{step_s * 1e3:.1f} ms: measured MFU {model_flops / step_s / H100_SXM.peak_flops:.4%}, "
+          f"counted FLOP/s {terms.flops_per_device / step_s / 1e12:.2f} T = {share:.4%} of the "
+          f"bf16 peak against phase train's hand count {train['flops_all']:.6e} = {hand:.4%} "
+          f"(counted / hand {terms.flops_per_device / train['flops_all']:.4f}); roofline share "
+          f"(the bound over the measured step) {terms.step_time_s / step_s:.2%}", flush=True)
+
+
+def _roofline_prefill(torch, prefill_s):
+    """(b): SERVE_ARCH's prefill at SERVE_BATCH x SERVE_PROMPT counted on
+    the card through the ``cuda`` backend (the kernel launches and its
+    wrapper charges ``op_cost.attention_cost``) and through the ``torch``
+    backend (the chunked attention's dots counted as they run), beside
+    phase serving's measured prefill. The two counts must be equal."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import H100_SXM, analyze
+    from repro_torch.roofline.op_cost import OpCounter
+    cfg = get_config(SERVE_ARCH)
+    params = build_model(cfg, device=DEVICE).init(SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator(device=DEVICE).manual_seed(SERVE_SEED),
+                           device=DEVICE)
+    counted = {}
+    for backend in ("cuda", "torch"):
+        model = build_model(cfg, device=DEVICE, kernel_backend=backend)
+        with OpCounter() as counter:
+            logits, _ = model.prefill(params, {"tokens": tokens})
+        check(bool(torch.isfinite(logits).all()), f"the counted {backend} prefill's logits")
+        counted[backend] = counter
+        del logits
+    del params
+    torch.cuda.empty_cache()
+    kern, ref = counted["cuda"], counted["torch"]
+    charge = kern.charges["flash_attention"]
+    # the torch backend's attention dots: what it counts beyond the ops
+    # both backends run (einsum lowers them to bmm or mm by shape)
+    dots = ref.cost.flops - (kern.cost.flops - charge[0])
+    check(charge[2] == cfg.num_layers, f"flash_attention charged {charge[2]} times, "
+          f"expected {cfg.num_layers}")
+    check(charge[0] == dots, f"the flash_attention charge {charge[0]:.6e} differs from the "
+          f"torch backend's attention dots {dots:.6e}")
+    model_flops = model_flops_for(cfg, ShapeSpec("prefill", SERVE_PROMPT, SERVE_BATCH,
+                                                 "prefill"))
+    terms = analyze(kern, chips=1, model_flops=model_flops)
+    print(f"roofline (b) prefill {cfg.name} {SERVE_BATCH} x {SERVE_PROMPT} through the cuda "
+          f"backend: counted {terms.flops_per_device:.6e} FLOPs, {terms.bytes_per_device:.6e} B; "
+          f"flash_attention charged {charge[2]} times, {charge[0]:.6e} FLOPs and {charge[1]:.6e} "
+          f"B, the torch backend's attention dots at the same shapes {dots:.6e} FLOPs (equal; its "
+          f"whole prefill {ref.cost.flops:.6e} FLOPs, {ref.cost.bytes:.6e} B); model flops "
+          f"{model_flops:.6e}; {_terms_line(terms)}; measured prefill (phase serving) "
+          f"{prefill_s:.4f} s = {SERVE_BATCH * SERVE_PROMPT / prefill_s:.1f} tokens/s: measured "
+          f"MFU {model_flops / prefill_s / H100_SXM.peak_flops:.4%}, counted FLOP/s "
+          f"{terms.flops_per_device / prefill_s / 1e12:.2f} T, roofline share "
+          f"{terms.step_time_s / prefill_s:.2%}", flush=True)
+
+
+def _roofline_bench(records):
+    """(c): the bench's roofline records (phase bench): bytes an event and
+    the memory bound an event beside the measured time an event."""
+    for grid, recs in records.items():
+        for r in recs:
+            per_event = sum(g["bytes_per_event"] * g["events"] for g in r["groups"]) / r["events"]
+            steps = sum(g["events"] for g in r["groups"])
+            check(per_event > 0, f"bench {grid} {r['backend']}: no bytes counted")
+            print(f"roofline (c) bench {grid} {r['backend']}: {len(r['groups'])} group(s), "
+                  f"{steps} steps for {r['events']} events: {per_event:.6g} counted B an event "
+                  f"(a step {r['groups'][0]['bytes_per_event']:.6g} B for all its lanes), "
+                  f"memory bound {r['memory_s'] / r['events'] * 1e6:.6g} us an event against "
+                  f"{r['us_per_event']:.6g} us measured (best run_s {r['run_s_best']} s, "
+                  f"{r['events_per_sec_per_device']} events/s/device): roofline share "
+                  f"{r['memory_s'] / r['run_s_best']:.4%}", flush=True)
+
+
+def roofline_path(torch, train, prefill_s, bench_records):
+    """Phase roofline: (a) the train step's, (b) the prefill's and (c) the
+    simulator's counted work and roofline terms against the H100's peaks
+    (bounds, not measurements), each beside the time its own phase
+    measured."""
+    _roofline_train(torch, train)
+    _roofline_prefill(torch, prefill_s)
+    _roofline_bench(bench_records)
+    print(f"roofline (d) left out: {ROOFLINE_DRYRUN_LEFT_OUT}", flush=True)
 
 
 SEARCH_GOLDEN = "src/repro_torch/testdata/search_golden.json"
@@ -4502,7 +4664,7 @@ def main(argv=None):
     kv_launched, kv_call_s = phases.run("tiered_kv", tiered_kv_path, torch)
     phases.run("tiered_kv_profile", tiered_kv_profile, torch, kv_call_s)
     moe_launched = phases.run("expert_tiering", expert_path, torch)
-    serve_launched = phases.run("serving", serving_path, torch)
+    serve_launched, serve_prefill_s = phases.run("serving", serving_path, torch)
     phases.run("moe_serving", moe_serving_path, torch)
     family_launched = {phase: phases.run(phase, family_serving_path, torch, phase)
                        for phase in FAMILY_SERVING}
@@ -4526,8 +4688,10 @@ def main(argv=None):
     _, fig12_plain = phases.run("policy_matrix", policy_matrix, torch)
     phases.run("telemetry", telemetry_path, torch, profiles, fig12_plain)
     phases.run("pond", pond_path, torch)
-    phases.run("bench", bench, torch)
+    benched = phases.run("bench", bench, torch)
     phases.run("search", search_path, torch)
+    phases.run("roofline", roofline_path, torch, dense_train, serve_prefill_s,
+               benched["roofline"])
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(f"total: {sum(phases.seconds.values()):.3f} s in phases, "
           f"{time.perf_counter() - t_start:.3f} s wall")

@@ -19,9 +19,14 @@ Rows (``bench_famsim.json``) and the throughput trajectory
 (``bench_famsim_trajectory.json``, one entry per backend per invocation,
 appended) are written only under ``--out``; so is, with ``--telemetry``,
 the host span timeline of the measurement (``trace/bench_famsim.json``:
-plan and repeat spans a backend, the executor's inside them). The reference's roofline
-record (``--no-roofline``) waits for the port of ``roofline/``, so the
-option is not offered.
+plan and repeat spans a backend, the executor's inside them), and, unless
+``--no-roofline``, the roofline record (``roofline/famsim_step.json``):
+per backend and compile group, the counted work of the group's events
+(:meth:`repro_torch.core.famsim.GroupRunner.count_event` times the
+group's padded events, as the reference's loop-aware count of its compiled
+group multiplies the loop body by its trip count), its terms against the
+H100's peaks (:mod:`repro_torch.roofline.analysis`), bytes and flops an
+event, joined with the measured ``run_s_best`` and events/s/device.
 
 Usage::
 
@@ -44,11 +49,14 @@ from repro_torch.benchmarks import fig08_blocksize
 from repro_torch.benchmarks.common import (BASELINE, DRAM, obs_tracer, save_rows,
                                            workloads)
 from repro_torch.configs.base import KERNEL_BACKENDS
-from repro_torch.experiments import config_axis, execute, flag_axis, workload_axis
+from repro_torch.experiments import config_axis, execute, executor, flag_axis, workload_axis
 from repro_torch.obs.spans import maybe_span
+from repro_torch.roofline.analysis import analyze
+from repro_torch.roofline.op_cost import OpCost
 
 NAME = "bench_famsim"
 TRAJECTORY = "bench_famsim_trajectory.json"
+ROOFLINE = "roofline/famsim_step.json"
 SCHEMA = "bench_famsim_torch/v1"
 
 #: The quick grid: a subsample of fig08 (same axes, fewer values) at a
@@ -96,6 +104,7 @@ def measure(backend: str, quick: bool, repeats: int, device="cuda") -> dict:
     info = result.info
     best = min(runs)
     return {
+        "plan": plan,             # for the roofline record; not serialized
         "backend": backend,
         "digest": _digest(result),
         "events": info.events,
@@ -110,6 +119,34 @@ def measure(backend: str, quick: bool, repeats: int, device="cuda") -> dict:
         "events_per_sec_per_device": round(
             info.events / max(best, 1e-12) / max(info.devices, 1), 1),
         "engine": info.as_dict(),
+    }
+
+
+def roofline_record(measured: dict, device="cuda") -> dict:
+    """The counted work of each compile group of ``measured``'s plan (its
+    runners are in the executor's cache after :func:`measure`), joined
+    with the measured steady-state throughput."""
+    plan = measured["plan"]
+    devices = measured["devices"]
+    recs = []
+    for g, runner in zip(plan.groups, executor.cached_runners(plan, device=device)):
+        one = runner.count_event()
+        cost = OpCost()
+        cost.add(one.cost, g.t_pad)
+        terms = analyze(cost, chips=devices, model_flops=0.0)
+        terms.xla_flops_once, terms.xla_bytes_once = one.flops_once, one.bytes_once
+        recs.append({"static_shape": str(g.key.static_shape), "events": g.t_pad,
+                     "bytes_per_event": one.cost.bytes, "flops_per_event": one.cost.flops,
+                     "charges_per_event": one.charges, **terms.to_dict()})
+    events = measured["events"]
+    return {
+        "backend": measured["backend"],
+        "events": events,
+        "run_s_best": measured["run_s_best"],
+        "events_per_sec_per_device": measured["events_per_sec_per_device"],
+        "us_per_event": measured["us_per_event"],
+        "memory_s": sum(r["memory_s"] for r in recs),
+        "groups": recs,
     }
 
 
@@ -144,6 +181,8 @@ def main(argv=None) -> list:
                     help="record a host span timeline (plan / repeat / the "
                          "executor's spans a backend) to DIR/trace/bench_famsim.json "
                          "under --out")
+    ap.add_argument("--no-roofline", action="store_true",
+                    help="skip the roofline record (DIR/roofline/famsim_step.json)")
     ap.add_argument("--out", default=None, metavar="DIR",
                     help=f"write the rows to DIR/{NAME}.json and append the "
                          f"trajectory entries to DIR/{TRAJECTORY}")
@@ -154,6 +193,10 @@ def main(argv=None) -> list:
     with obs_tracer(NAME, int(args.telemetry), args.out):
         measured = [measure(b, args.quick, args.repeats, args.device)
                     for b in backends]
+    roofline = [] if args.no_roofline else \
+        [roofline_record(m, args.device) for m in measured]
+    for m in measured:
+        m.pop("plan")
     digests = {m["backend"]: m["digest"] for m in measured}
     assert len(set(digests.values())) == 1, (
         "kernel backends disagree on the metrics: the CUDA cache step must "
@@ -166,6 +209,10 @@ def main(argv=None) -> list:
             for m in measured]
     if args.out is not None:
         save_rows(NAME, rows, args.out)
+        if roofline:
+            path = Path(args.out) / ROOFLINE
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(roofline, indent=2) + "\n")
         _append_trajectory(Path(args.out) / TRAJECTORY, [
             {k: v for k, v in r.items() if k not in ("engine", "us_per_call")}
             | {"quick": bool(args.quick)} for r in rows])
@@ -177,6 +224,11 @@ def main(argv=None) -> list:
         print(f"# {m['backend']}: {m['events_per_sec_per_device']} events/s/device "
               f"(best run_s {m['run_s_best']} s of {m['run_s_all']}, captures "
               f"{m['compile_s']} s)", flush=True)
+    for r in roofline:
+        per_event = sum(g["bytes_per_event"] * g["events"] for g in r["groups"]) / r["events"]
+        print(f"# roofline {r['backend']}: {per_event:.6g} counted bytes an event, memory "
+              f"bound {r['memory_s'] / r['events'] * 1e6:.6g} us an event (H100 peak) against "
+              f"{r['us_per_event']:.6g} us measured", flush=True)
     if len(measured) > 1:
         base, other = measured[0], measured[1]
         print(f"# {other['backend']} vs {base['backend']}: "

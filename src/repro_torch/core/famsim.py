@@ -607,6 +607,25 @@ class GroupRunner:
         return (_tree_bytes(self.p) + _tree_bytes(self.buf) +
                 _tree_bytes(self.xs) + self.pool_bytes)
 
+    def count_event(self):
+        """The work of one event, as :class:`repro_torch.roofline.op_cost.
+        OpCounter` counts it (after a first call): one eager in-place step
+        on the runner's buffers over a dead event (neither live nor warm,
+        an exact no-op; every event runs the same ops). Its kernel launch
+        is taken back from ``fused_cache_step.launches``, as a capture's
+        are."""
+        from repro_torch.roofline.op_cost import OpCounter
+        if self.buf is None:
+            raise RuntimeError("count_event needs the runner to have run once")
+        dev = self.xs[0].device
+        dead = tuple(torch.zeros_like(x[0]) for x in self.xs)
+        launches = fused_cache_step.launches
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            with OpCounter() as counter:
+                _in_place(self.step)(self.pn, self.buf, dead)
+        fused_cache_step.launches = launches
+        return counter
+
     def __call__(self, p: FamParams, addrs, gaps, t_true, warm_start):
         N, T_pad = addrs.shape[1:]
         cfg, dev = self.cfg, addrs.device

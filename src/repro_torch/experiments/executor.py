@@ -363,6 +363,15 @@ def group_cache_keys(plan: Plan, *, devices: Optional[int] = None,
     return tuple(keys)
 
 
+def cached_runners(plan: Plan, *, device="cuda") -> List[famsim.GroupRunner]:
+    """The cached runner of each group of ``plan`` (its first shard's) once
+    :func:`execute` has run the plan on ``device`` (raises KeyError for a
+    group it has not run)."""
+    dev = resolve_device(device)
+    keys = group_cache_keys(plan, device=dev)
+    return [_EXEC_CACHE[(key, _shard_devices(dev, key[6])[0], 0)] for key in keys]
+
+
 def _clear_exec_cache() -> None:
     """Drop every cached runner (and its graph and buffers)."""
     _EXEC_CACHE.clear()

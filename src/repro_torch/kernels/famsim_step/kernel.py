@@ -19,6 +19,7 @@ from repro_torch.core import dram_cache as dc
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.famsim_step.ref import cache_step_ref
 from repro_torch.policies.replacement import _SrripBound
+from repro_torch.roofline import op_cost
 
 SOURCE = Path(__file__).with_name("csrc") / "famsim_step.cu"
 MODES = {"lru": 0, "srrip": 1}
@@ -62,6 +63,8 @@ def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
     Returns (hit (*B,) bool, probe_hits (*B, P) bool), the same values as
     :func:`ref.cache_step_ref`. CUDA tensors launch the kernel (counted in
     ``fused_cache_step.launches``); CPU tensors run the plain version.
+    Under an active op counter the call is charged its operands and
+    results once, and its plain version is not counted.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
@@ -82,12 +85,21 @@ def fused_cache_step(tags, lru, stamp, fill_blocks, fill_enable,
             ("num_sets", num_sets, i32, lanes), ("ways", ways, i32, lanes)):
         nvcc.check_tensor(name, t, dtype, shape, dev)
 
+    if op_cost.active():
+        # the reference's custom-call rule: operands + results once (tags,
+        # lru and stamp are written in place, hit and probe_hits are new)
+        results = tags.numel() * 4 + lru.numel() * 4 + stamp.numel() * 4
+        results += stamp.numel() * (1 + P)
+        op_cost.charge("fused_cache_step", 0.0, float(op_cost.tensor_bytes(
+            tags, lru, stamp, fill_blocks, fill_enable, demand_block, demand_enable,
+            probe_blocks, num_sets, ways) + results))
     if dev.type == "cpu":
         policy = _SrripBound(max_rrpv) if mode == "srrip" else None
-        _, hit, probe_hits = cache_step_ref(
-            dc.CacheState(tags, lru, stamp), fill_blocks, fill_enable,
-            demand_block, demand_enable, probe_blocks, num_sets, ways,
-            policy=policy)
+        with op_cost.uncounted():
+            _, hit, probe_hits = cache_step_ref(
+                dc.CacheState(tags, lru, stamp), fill_blocks, fill_enable,
+                demand_block, demand_enable, probe_blocks, num_sets, ways,
+                policy=policy)
         return hit, probe_hits
     if dev.type != "cuda":
         raise ValueError(f"fused_cache_step runs on cuda or cpu tensors, not {dev}")

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.roofline import op_cost
 
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,7 +65,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     CUDA tensors launch the kernel that :func:`variant` names (counted in
     ``flash_attention.launches`` and, per variant, in
     ``flash_attention.variant_launches``); CPU tensors run the plain
-    version. The kernel has no backward: under grad mode, inputs that
+    version. Under an active op counter the call is charged
+    ``op_cost.attention_cost`` (the ``"torch"`` attention's dots at these
+    shapes) and its plain version is not counted. The kernel has no backward: under grad mode, inputs that
     require grad raise on any device (train through the ``"torch"``
     attention)."""
     nvcc.refuse_grad("flash_attention", q, k, v)
@@ -82,8 +85,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along D")
+    if op_cost.active():
+        op_cost.charge("flash_attention",
+                       *op_cost.attention_cost(q.shape, k.shape, q.element_size()))
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        with op_cost.uncounted():
+            return flash_attention_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {dev}")
     isz = q.element_size()

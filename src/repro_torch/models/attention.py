@@ -71,21 +71,43 @@ def init_attention(gen, cfg: ModelConfig, device=None,
     return Attention(cfg, gen, device, kv_input_dim)
 
 
+def _whole(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """DTensor ``t`` with ``dim`` gathered along every mesh axis whose split
+    ``parts`` does not divide: DTensor splits a sharded dim into ``parts``
+    outer pieces only where the ranks divide them."""
+    from torch.distributed.tensor import Replicate
+    dim, split, placements = dim % t.ndim, 1, []
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard() and pl.dim % t.ndim == dim:
+            split *= t.device_mesh.size(i)
+            if parts % split:
+                pl = Replicate()
+        placements.append(pl)
+    return t.redistribute(t.device_mesh, tuple(placements))
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a cotangent with ``dim``
+    gathered as :func:`_whole` gathers it, for the backward of a split
+    of that dim into ``parts``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, parts):
+        ctx.dim, ctx.parts = dim, parts
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.dim, ctx.parts), None, None
+
+
 def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
     """(B, S, heads * head_dim) -> (B, S, heads, head_dim). A DTensor whose
     last dim is split over more ranks than ``heads`` divides is gathered
     along it first (DTensor splits a sharded dim only at its outer
     factor)."""
     if is_dtensor(t):
-        from torch.distributed.tensor import Replicate
-        last, split, placements = t.ndim - 1, 1, []
-        for i, pl in enumerate(t.placements):
-            if pl.is_shard() and pl.dim % t.ndim == last:
-                split *= t.device_mesh.size(i)
-                if heads % split:
-                    pl = Replicate()
-            placements.append(pl)
-        t = t.redistribute(t.device_mesh, tuple(placements))
+        t = _whole(t, -1, heads)
     return t.reshape(t.shape[:2] + (heads, head_dim))
 
 
@@ -108,13 +130,19 @@ def kv_proj(cfg: ModelConfig, p: Attention, kv_x: torch.Tensor
 
 def out_proj(cfg: ModelConfig, p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
     B, S = attn_out.shape[:2]
-    return attn_out.reshape(B, S, cfg.q_dim) @ p.wo.to(attn_out.dtype)
+    x = attn_out.reshape(B, S, cfg.q_dim)
+    if is_dtensor(x):
+        # the backward splits x's cotangent back into the heads
+        x = _WholeGrad.apply(x, -1, cfg.num_heads)
+    return x @ p.wo.to(attn_out.dtype)
 
 
 def _group_q(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
     """(B,S,Hq,D) -> (B,S,Hkv,G,D) grouping query heads onto kv heads."""
     B, S, Hq, D = q.shape
     G = Hq // cfg.num_kv_heads
+    if is_dtensor(q):
+        q = _whole(q, 2, cfg.num_kv_heads)
     return q.reshape(B, S, cfg.num_kv_heads, G, D)
 
 

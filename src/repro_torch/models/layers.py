@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import is_dtensor
@@ -180,18 +181,24 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
+# The cached constants are made with every dispatch mode off: real tensors
+# even when first asked for under a fake-tensor mode (the dry run), so no
+# fake tensor outlives its mode, and no op counter charges a step for them.
+
 @functools.lru_cache(maxsize=None)
 def _inv_frequencies(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(rope_frequencies(head_dim, theta), dtype=torch.float32,
-                        device=device)
+    with _disable_current_modes():
+        return torch.tensor(rope_frequencies(head_dim, theta), dtype=torch.float32,
+                            device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _mrope_planes(sections: tuple, device: torch.device) -> torch.Tensor:
     """(half,) int64: the position plane (0 t, 1 h, 2 w) of each frequency
     pair."""
-    return torch.repeat_interleave(torch.arange(3, device=device),
-                                   torch.tensor(sections, device=device))
+    with _disable_current_modes():
+        return torch.repeat_interleave(torch.arange(3, device=device),
+                                       torch.tensor(sections, device=device))
 
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

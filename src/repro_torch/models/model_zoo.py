@@ -50,6 +50,7 @@ from torch import nn
 from repro_torch.configs.base import KERNEL_BACKENDS, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer, xlstm, zamba
+from repro_torch.models.layers import torch_dtype
 from repro_torch.parallel.sharding import ParallelContext, is_dtensor, shard_params, spmd
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
@@ -152,6 +153,34 @@ class Model:
             return encdec.decode_step(c, params, cache, tokens, index)
         return transformer.decode_step(c, params, cache, tokens, index,
                                        batch.get("positions"), ctx=self.ctx)
+
+    # -- a cell's inputs (the dry run's) --------------------------------------
+    def batch_struct(self, shape) -> Dict[str, Any]:
+        """The batch of a ``ShapeSpec`` cell, as zeros on the model's device
+        (under a fake-tensor mode nothing is allocated): the reference's
+        ``batch_struct`` keys and types. A decode batch's ``index`` is the
+        int the port's decode takes: the cache's last slot."""
+        c, dev = self.cfg, self.device
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "train":
+            out = {"tokens": torch.zeros((B, S), dtype=i32, device=dev),
+                   "labels": torch.zeros((B, S), dtype=i32, device=dev)}
+        elif shape.kind == "prefill":
+            out = {"tokens": torch.zeros((B, S), dtype=i32, device=dev)}
+        else:
+            out = {"tokens": torch.zeros((B, 1), dtype=i32, device=dev), "index": S - 1}
+        if c.position == "mrope" and shape.kind != "decode":
+            out["positions"] = torch.zeros((3, B, S), dtype=i32, device=dev)
+        if c.is_encoder_decoder and shape.kind != "decode":
+            out["frames"] = torch.zeros((B, c.encoder_seq, c.d_model),
+                                        dtype=torch_dtype(c.dtype), device=dev)
+        return out
+
+    def cache_struct(self, shape):
+        """The cache of a decode cell: ``shape.seq_len`` entries for
+        ``shape.global_batch`` sequences (:meth:`init_cache`)."""
+        return self.init_cache(shape.global_batch, shape.seq_len)
 
     def init_cache(self, batch: int, max_len: int):
         c, dev = self.cfg, self.device

@@ -30,10 +30,23 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, normal, param, torch_dtype
-from repro_torch.parallel.sharding import spmd
+from repro_torch.parallel.sharding import is_dtensor, spmd
 
 State = Dict[str, torch.Tensor]
 F32 = torch.float32
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor it runs on each rank's shard (a
+    ``Partial`` input reduced first): DTensor has no sharding rule for
+    its backward."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    x = x.redistribute(x.device_mesh, placements)
+    return DTensor.from_local(F.logsigmoid(x.to_local()), x.device_mesh, placements,
+                              run_check=False)
 
 
 def _mlstm_dims(cfg: ModelConfig):
@@ -87,7 +100,7 @@ def _mlstm_inputs(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
     k = (main @ p.wk.to(dt)).reshape(B, S, H, dk) / np.sqrt(dk)
     v = (main @ p.wv.to(dt)).reshape(B, S, H, dk)
     gif = (main @ p.wif.to(dt)).to(F32).reshape(B, S, H, 2)
-    log_f = F.logsigmoid(gif[..., 1] + 3.0)   # bias toward remembering
+    log_f = _logsigmoid(gif[..., 1] + 3.0)   # bias toward remembering
     return main, z, q, k, v, gif[..., 0], log_f
 
 
@@ -156,7 +169,7 @@ def slstm_cell(gx, r, state):
     zi, ii, fi, oi = (gx[:, g] + rec[:, g] for g in range(4))
     z = torch.tanh(zi)
     o = torch.sigmoid(oi)
-    log_f = F.logsigmoid(fi + 3.0)
+    log_f = _logsigmoid(fi + 3.0)
     m_new = torch.maximum(log_f + m, ii)
     i_ = torch.exp(ii - m_new)
     f_ = torch.exp(log_f + m - m_new)

@@ -28,8 +28,9 @@ themselves, each over the process group of one mesh axis:
 
 ``shard_map`` has no counterpart: the port's sharded functions
 (``models.moe.moe_sharded``, ``parallel.pipeline``) take this rank's
-slices themselves. ``cost_analysis_dict`` reads XLA's cost analysis and
-waits for the port's ``roofline/``.
+slices themselves. ``cost_analysis_dict`` reads XLA's cost analysis; the
+port's counts come from ``repro_torch.roofline.op_cost``, whose
+``flops_once`` / ``bytes_once`` play its part.
 """
 from __future__ import annotations
 

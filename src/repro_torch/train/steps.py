@@ -29,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import (Model, check_keys, init_params,
                                           params_from_numpy, per_layer_arrays)
-from repro_torch.parallel.sharding import spmd
+from repro_torch.parallel.sharding import is_dtensor, spmd
 from repro_torch.optim.adamw import (Q_BLOCK, AdamWConfig, adamw_update, adamw_update_q8,
                                      global_norm, init_opt_state, init_opt_state_q8)
 
@@ -87,14 +87,18 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
         B = x.shape[0]
         # batch entries that do not start with the global batch (M-RoPE
         # positions (3, B, S)) are split on axis 1
-        if x.ndim >= 2 and x.shape[0] == 3 and x.shape[1] % microbatches == 0:
+        positions = x.ndim >= 2 and x.shape[0] == 3 and x.shape[1] % microbatches == 0
+        if is_dtensor(x):
+            return _split_sharded(x, microbatches, 1 if positions else 0)
+        if positions:
             return x.reshape((3, microbatches, -1) + x.shape[2:]).swapaxes(0, 1)
         return x.reshape((microbatches, B // microbatches) + x.shape[1:])
 
     def accumulate(params, batch):
         """Gradient accumulation over leading splits of the batch."""
         mb = {k: split(v) for k, v in batch.items()}
-        grads_a = {n: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+        # placed as the parameters on a sharded model
+        grads_a = {n: torch.zeros_like(p, dtype=accum_dtype)
                    for n, p in params.named_parameters()}
         dev = next(iter(grads_a.values())).device
         loss_a = torch.zeros((), dtype=torch.float32, device=dev)
@@ -125,19 +129,43 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
     return train_step
 
 
+def _split_sharded(x, microbatches: int, dim: int):
+    """A DTensor batch entry split into ``microbatches`` along ``dim``:
+    where that dim is sharded, microbatch i takes the i-th slice of every
+    rank's rows, so no row moves (a split of the global rows would gather
+    them first); each microbatch keeps the entry's placements."""
+    from torch.distributed.tensor import DTensor
+    if not any(p.is_shard(dim) for p in x.placements):
+        return list(x.unflatten(dim, (microbatches, -1)).unbind(dim))
+    parts = x.to_local().unflatten(dim, (microbatches, -1)).unbind(dim)
+    return [DTensor.from_local(t, x.device_mesh, x.placements, run_check=False)
+            for t in parts]
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax over the vocab (last dim), int32. A DTensor's vocab is
+    gathered first: DTensor's argmax over a sharded dim fails for a batch
+    of one row."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate
+        vocab = logits.ndim - 1
+        placements = tuple(Replicate() if p.is_shard(vocab) or p.is_partial() else p
+                           for p in logits.placements)
+        logits = logits.redistribute(logits.device_mesh, placements)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def build_prefill_step(model: Model):
     def prefill_step(params, batch):
         logits, cache = model.prefill(params, batch)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return next_tok, logits, cache
+        return greedy_tokens(logits), logits, cache
     return prefill_step
 
 
 def build_decode_step(model: Model, *, greedy: bool = True):
     def serve_step(params, cache, batch):
         logits, cache = model.decode(params, cache, batch)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return next_tok, cache
+        return greedy_tokens(logits), cache
     return serve_step
 
 

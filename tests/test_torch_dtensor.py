@@ -20,6 +20,8 @@
   decoded values within one code. The projections' last dims are sharded
   into 32- and 16-wide slices, so no rank's slice is a whole int8 block:
   the blocks are JAX's global ones only if each row is quantized whole;
+  and the dense config's adamw step at (2, 2) in 2 microbatches, each
+  rank splitting its own rows;
 * on ``single_device_context``'s one-rank mesh, in this process, the
   sharded MoE forward equals the plain model's bit for bit and one
   ``adamw_q8`` step moves the parameters as on the plain model.
@@ -77,6 +79,7 @@ REFERENCE = textwrap.dedent("""
     out_dir = Path(sys.argv[1])
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[2:6])
     B, S = int(sys.argv[6]), int(sys.argv[7])
+    MICROBATCHES = 2
 
     def flat(tree):
         leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
@@ -158,6 +161,17 @@ REFERENCE = textwrap.dedent("""
                         out[f"mu/{tag}/{k}"] = v
                 out[f"loss/{tag}"] = np.asarray(metrics["loss"])
                 out[f"gnorm/{tag}"] = np.asarray(metrics["grad_norm"])
+            if kind == "dense" and mname == "22":
+                state = {"params": p, "opt": jax.device_put(
+                    init_opt_state(params[arch]), param_shardings(ctx, init_opt_state(params[arch])))}
+                step = jax.jit(JS.build_train_step(model, AdamWConfig(**opt_kw),
+                                                   microbatches=MICROBATCHES))
+                new, metrics = step(state, b)
+                tag = f"{kind}{mname}/adamw_mb"
+                for k, v in flat(new["params"]).items():
+                    out[f"step/{tag}/{k}"] = v
+                out[f"loss/{tag}"] = np.asarray(metrics["loss"])
+                out[f"gnorm/{tag}"] = np.asarray(metrics["grad_norm"])
     np.savez(out_dir / "reference.npz", **out)
 """)
 
@@ -179,6 +193,7 @@ PORT = textwrap.dedent("""
         init_opt_state_q8
     in_dir, out_path = Path(sys.argv[4]), sys.argv[5]
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[6:10])
+    MICROBATCHES = 2
 
     def cfg_of(arch):
         return dataclasses.replace(get_config(arch), dtype="float32")
@@ -237,6 +252,17 @@ PORT = textwrap.dedent("""
                     for n, m in state["opt"]["mu"].items():
                         for part in ("q", "s"):
                             out[f"mu/{tag}/{n}.{part}"] = m[part].full_tensor().numpy()
+                out[f"loss/{tag}"] = metrics["loss"].numpy()
+                out[f"gnorm/{tag}"] = metrics["grad_norm"].numpy()
+            if kind == "dense" and mname == "22":
+                cfg, model, params, batch = sharded(arch, ctx)
+                state = {"params": params, "opt": init_opt_state(params)}
+                step = build_train_step(model, AdamWConfig(**opt_kw),
+                                        microbatches=MICROBATCHES)
+                state, metrics = step(state, batch)
+                tag = f"{kind}{mname}/adamw_mb"
+                for n, p in state["params"].named_parameters():
+                    out[f"step/{tag}/{n}"] = p.detach().full_tensor().numpy()
                 out[f"loss/{tag}"] = metrics["loss"].numpy()
                 out[f"gnorm/{tag}"] = metrics["grad_norm"].numpy()
     np.savez(out_path, **out)
@@ -378,6 +404,28 @@ def test_sharded_train_step_matches_reference(runs, case, opt):
                 (0, -c.shape[-1] % 128)]).reshape(c.shape[:-1] + (-1, 128))
             step = (np.abs(blocks(out[f"mu/{tag}/{key}"]) - blocks(w)) * scale[..., None])
             assert (step <= scale[..., None] * 1.0001).all(), (tag, key, r)
+
+
+def test_microbatched_sharded_step_matches_reference(runs):
+    """The dense config's adamw step at (2, 2) in 2 microbatches: the
+    port's microbatch i takes the i-th slice of every data rank's rows
+    (``steps._split_sharded``), the reference's a block of global rows;
+    with every token in the mean and equal microbatches the loss, the
+    gradient norm and every update are the same sums, within STEP_TOL."""
+    ref, ranks, inits = runs
+    arch = TRAIN["dense"]
+    cfg = _cfg(arch)
+    tag = "dense22/adamw_mb"
+    init = per_layer_arrays(cfg, _nest({k: v for k, v in inits[arch].items()
+                                        if not k.startswith("batch/")}))
+    want = _port_names(cfg, ref, f"step/{tag}/")
+    assert want.keys() == init.keys()
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out[f"loss/{tag}"], ref[f"loss/{tag}"], rtol=1e-5)
+        np.testing.assert_allclose(out[f"gnorm/{tag}"], ref[f"gnorm/{tag}"], rtol=1e-4)
+        for name, w in want.items():
+            _close(out[f"step/{tag}/{name}"] - init[name], w - init[name], STEP_TOL,
+                   f"{tag} {name} rank {r}")
 
 
 def test_one_rank_sharded_run_is_the_plain_model():
