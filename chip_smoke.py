@@ -312,7 +312,21 @@ code != 0):
    and the measured MFU at phase serving's prefill; (c) phase bench's
    records: bytes and the memory bound an event against the measured
    time an event. (d), a dry-run cell at 256 fake ranks, is left out
-   (ROOFLINE_DRYRUN_LEFT_OUT).
+   (ROOFLINE_DRYRUN_LEFT_OUT);
+20. analysis (``repro_torch.analysis``): (a) the static analyzer strict
+   over ``src/repro_torch``, no finding reported; (b) the sync guard live
+   on the card: ``.item()`` of a CUDA tensor inside
+   ``no_implicit_transfers()`` (``torch.cuda.set_sync_debug_mode
+   ("error")``) raises, inside ``explicit_fetch()`` it fetches, and the
+   mode is restored; (c) ``xla_compiles`` (the CompileWatcher's count of
+   the captures reported at ``famsim._capture``), ``compiles`` and
+   ``planned_groups`` of every figure, policy-matrix, telemetry, Pond,
+   bench and search run above, each run with ``assert_compiles=True``
+   under the guard and held equal by ``check_captures`` (GUARDED_RUNS
+   must be among them);
+21. examples: the four ``examples/torch_*.py`` as subprocesses on the
+   card, started together, at the cut sizes of EXAMPLES: each exits 0 with
+   its closing line.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. The last two lines of standard output are the kernel table
@@ -517,6 +531,19 @@ def check_captures(what, info):
     check(captures == misses and captures + hits == get("planned_groups"),
           f"{what}: {captures} captures, {hits} cache hits, {misses} misses for "
           f"{get('planned_groups')} groups")
+    # a run under assert_compiles: the CompileWatcher's count of captures
+    # reported at the capture site (the reference's xla_compiles)
+    watched = get("xla_compiles")
+    if watched is not None and watched >= 0:
+        check(watched == captures <= get("planned_groups"),
+              f"{what}: the CompileWatcher saw {watched} captures, the executor "
+              f"counted {captures}, for {get('planned_groups')} groups")
+        compile_records.append((what, watched, captures, get("planned_groups")))
+
+
+#: (run, xla_compiles, compiles, planned_groups) of every run checked above
+#: that ran under ``assert_compiles`` (the sync guard on): phase analysis
+compile_records = []
 
 
 #: over the run: runner-cache hits of the runners emptied from the cache,
@@ -4170,6 +4197,8 @@ def bench(torch):
               f"bench quick={quick}: launches differ from {want}")
         check(not any(launched.values()), f"unexpected launches in the bench: {launched}")
         for r in rows:
+            check_captures(f"bench {'quick' if quick else 'full'} {r['backend']} (last "
+                           "execution)", r["engine"])
             print(f"bench {'quick' if quick else 'full'} {r['backend']}: "
                   f"{r['events_per_sec_per_device']} events/s/device ({r['events']} events, "
                   f"{r['points']} points, best run_s {r['run_s_best']} of {r['run_s_all']}, "
@@ -4628,6 +4657,106 @@ def search_path(torch):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase analysis: the static analyzer over the port, the sync guard, and
+# the capture counts the CompileWatcher saw in the guarded runs above
+# --------------------------------------------------------------------------
+
+#: the runs whose watched capture counts phase analysis must find
+GUARDED_RUNS = tuple(f"{f} {b}" for f in FIGURES for b in ("numpy", "device")) + \
+    tuple(f"{f} numpy" for f in NEW_FIGURES) + ("pond numpy", "pond device", "bench quick")
+
+
+def analysis_path(torch):
+    """(a) ``repro_torch.analysis`` strict over the port's tree: no finding
+    reported; (b) the sync guard is live on the card: ``.item()`` of a CUDA
+    tensor inside ``no_implicit_transfers()`` raises, inside
+    ``explicit_fetch()`` it does not, and the previous mode comes back;
+    (c) ``xla_compiles``, ``compiles`` and ``planned_groups`` of every
+    guarded run above (each ran under the guard and the CompileWatcher,
+    ``assert_compiles=True``)."""
+    import io
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.runtime import explicit_fetch, no_implicit_transfers
+    out = io.StringIO()
+    code = run_analysis([str(ROOT / "src" / "repro_torch")], strict=True, out=out)
+    print(out.getvalue().strip(), flush=True)
+    check(code == 0 and ", 0 reported [strict]" in out.getvalue(),
+          "repro_torch.analysis reported findings on the port's tree")
+    x = torch.arange(4, dtype=torch.float32, device=DEVICE)
+    before = torch.cuda.get_sync_debug_mode()
+    raised = None
+    with no_implicit_transfers():
+        try:
+            x.sum().item()
+        except RuntimeError as e:
+            raised = str(e).splitlines()[0]
+        with explicit_fetch():
+            fetched = x.sum().item()
+    check(raised is not None, ".item() of a CUDA tensor inside no_implicit_transfers() "
+          "did not raise")
+    check(fetched == 6.0 and torch.cuda.get_sync_debug_mode() == before,
+          "explicit_fetch() did not allow the fetch, or the guard left its mode set")
+    print(f"analysis: the guard raised on .item() ({raised!r}); explicit_fetch() fetched "
+          f"{fetched}; mode {before} restored", flush=True)
+    for what, watched, captures, planned in compile_records:
+        print(f"analysis: {what}: xla_compiles {watched}, compiles {captures}, "
+              f"planned_groups {planned}", flush=True)
+    seen = {r[0] for r in compile_records}
+    missing = [w for w in GUARDED_RUNS if not any(s.startswith(w) for s in seen)]
+    check(not missing, f"no watched capture count for {missing}")
+    return compile_records
+
+
+# --------------------------------------------------------------------------
+# phase examples: the four examples/torch_*.py on the card, at cut sizes
+# --------------------------------------------------------------------------
+
+#: script -> its arguments (sizes cut by them for time)
+EXAMPLES = {
+    "torch_quickstart.py": ["--T", "1000"],
+    "torch_multinode_fam.py": ["--T", "1000"],
+    "torch_serve_tiered.py": ["--context", "256", "--new-tokens", "8"],
+    "torch_train_lm.py": ["--steps", "30", "--dmodel", "128", "--layers", "2"],
+}
+EXAMPLE_TIMEOUT_S = 240
+
+
+def examples_path(torch):
+    """The four examples as subprocesses on the card, all started together,
+    at the cut sizes of EXAMPLES: each exits 0 and prints its closing line
+    (quickstart / serve_tiered / train_lm ``OK``, multinode's sharded
+    re-run bit-exact); their walls."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(script, tmp):
+        extra = ["--ckpt-dir", tmp] if script == "torch_train_lm.py" else []
+        t0 = time.perf_counter()
+        # run() kills the script if it outlasts the timeout
+        done = subprocess.run([sys.executable, str(ROOT / "examples" / script), "--device",
+                               DEVICE, *EXAMPLES[script], *extra], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        return done.returncode, done.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        futures = {script: pool.submit(run, script, tmp) for script in EXAMPLES}
+        results = {script: f.result() for script, f in futures.items()}
+    for script, (rc, out, wall) in results.items():
+        print(f"example {script} {' '.join(EXAMPLES[script])}: rc {rc}, {wall:.1f} s",
+              flush=True)
+        for line in out.strip().splitlines()[-8:]:
+            print(f"  {line}", flush=True)
+        check(rc == 0, f"example {script} exited {rc}:\n{out[-3000:]}")
+        closing = "sharded-vs-vmap bit_exact=True" if script == "torch_multinode_fam.py" \
+            else f"{script[len('torch_'):-3]} OK"
+        check(closing in out, f"example {script}: no {closing!r} in its output")
+    return {s: r[2] for s, r in results.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4692,6 +4821,8 @@ def main(argv=None):
     phases.run("search", search_path, torch)
     phases.run("roofline", roofline_path, torch, dense_train, serve_prefill_s,
                benched["roofline"])
+    phases.run("analysis", analysis_path, torch)
+    phases.run("examples", examples_path, torch)
     print("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phases.seconds.items()}))
     print(f"total: {sum(phases.seconds.values()):.3f} s in phases, "
           f"{time.perf_counter() - t_start:.3f} s wall")

@@ -35,6 +35,13 @@ design-space search over the fig14 mixes
     python -m repro_torch.benchmarks.run pond             # quick fleets, on the card
     python -m repro_torch.benchmarks.run search --out /tmp/search
 
+``--check`` runs the port's static analyzer (:mod:`repro_torch.analysis`,
+strict, over the port's tree) first and aborts on any finding it reports,
+the pre-flight that catches a runner-key leak or a host sync in the
+captured step before paying for the run::
+
+    python -m repro_torch.benchmarks.run --check fig08
+
 ``--device`` defaults to ``cuda`` (the run fails without a card rather
 than fall back to the CPU). JSON rows are written only under ``--out``.
 """
@@ -45,6 +52,7 @@ import inspect
 import itertools
 import sys
 import time
+from pathlib import Path
 
 FIGURE_NAMES = ("fig08", "fig10", "fig12", "fig14", "fig15", "fig16")
 
@@ -112,7 +120,18 @@ def main(argv=None):
                     help="write each figure's JSON rows to DIR/<figure>.json")
     ap.add_argument("--plan", action="store_true",
                     help="print each figure's compile groups and run nothing")
+    ap.add_argument("--check", action="store_true",
+                    help="run the repro_torch.analysis static gate first (the "
+                         "port's tree, strict mode) and abort on any "
+                         "non-allowlisted finding")
     args = ap.parse_args(argv)
+
+    if args.check:
+        from repro_torch.analysis import run_analysis
+        code = run_analysis([str(Path(__file__).resolve().parents[1])], strict=True)
+        if code:
+            sys.exit(code)
+        print("# repro_torch.analysis: clean", file=sys.stderr)
 
     figures = _figures()
     keep = set(args.figures)

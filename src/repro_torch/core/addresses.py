@@ -5,8 +5,10 @@ decomposed as  page | block | offset:
     page  = addr >> page_bits
     block = (addr >> block_bits) & (blocks_per_page - 1)
 
-The ``dyn_*`` forms take ``block_bits`` as a tensor (one value per
-simulated system), which is how the simulator uses them.
+The classic forms take ``block_bytes`` as a Python int (shift amounts
+constant); the ``dyn_*`` forms take ``block_bits`` as a tensor (one value
+per simulated system), which is how the simulator uses them. Both give
+identical integers for identical inputs.
 """
 from __future__ import annotations
 
@@ -17,6 +19,27 @@ PAGE_BITS = 12  # 4 KiB pages
 
 def block_bits(block_bytes: int) -> int:
     return int(block_bytes).bit_length() - 1
+
+
+def split(addr, block_bytes: int):
+    """addr (cache-line granular, in bytes) -> (page, block_in_page)."""
+    bb = block_bits(block_bytes)
+    page = addr >> PAGE_BITS
+    block = (addr >> bb) & ((1 << (PAGE_BITS - bb)) - 1)
+    return page, block
+
+
+def block_addr(addr, block_bytes: int):
+    """Global block index of a byte address."""
+    return addr >> block_bits(block_bytes)
+
+
+def blocks_per_page(block_bytes: int) -> int:
+    return 1 << (PAGE_BITS - block_bits(block_bytes))
+
+
+def from_page_block(page, block, block_bytes: int):
+    return (page << (PAGE_BITS - block_bits(block_bytes))) + block
 
 
 def dyn_block_bits(block_bytes) -> torch.Tensor:

@@ -70,7 +70,7 @@ def _row_index(state: CacheState, si):
     return idx.expand(*idx.shape[:-1], w_pad)
 
 
-def _rows(t, idx, squeeze):
+def _rows(t, idx, squeeze: bool):
     rows = t.gather(-2, idx)
     return rows.squeeze(-2) if squeeze else rows
 
@@ -181,6 +181,17 @@ def insert(state: CacheState, block_addr, enable=True,
         state.lru.scatter_(-2, idx, new_row.unsqueeze(-2))
     state.stamp.copy_(stamp)
     return state, evicted, si * w_pad + way.to(torch.int32)
+
+
+def invalidate(state: CacheState, block_addr, num_sets=None, ways=None
+               ) -> CacheState:
+    """Clear the tag of each lane's ``block_addr`` where it is cached (in
+    place; ``block_addr`` has the lane shape). Recency is left as is."""
+    hit, si, way = lookup(state, block_addr, num_sets=num_sets, ways=ways)
+    row = _rows(state.tags, _row_index(state, si), True)
+    old = row.gather(-1, way.to(torch.int64).unsqueeze(-1)).squeeze(-1)
+    _write(state.tags, si, way.to(torch.int64), torch.where(hit, 0, old))
+    return state
 
 
 def occupancy(state: CacheState, num_sets=None, ways=None) -> torch.Tensor:

@@ -35,7 +35,8 @@ State tensors are updated in place where JAX returns new arrays.
 
 Entry points (:func:`build_sim`, :func:`sweep`, :func:`simulate`) take a
 ``device`` and default to ``"cuda"``; pass ``device="cpu"`` to run on the
-CPU (the cache step then runs its plain version).
+CPU (the cache step then runs its plain version). :func:`build_sweep`'s
+runner runs on its traces' device.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import (GROUP_RUNNER_NAME, explicit_fetch,
+                                          report_capture)
 from repro_torch.configs.base import KERNEL_BACKENDS, FamConfig
 from repro_torch.core import dram_cache as dc
 from repro_torch.core import prefetch_queue as pq
@@ -59,8 +62,8 @@ from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.obs.spans import maybe_span
 from repro_torch.policies import DEFAULT_POLICY_SET, PolicySet, SimFlags
 
-__all__ = ["SimFlags", "PolicySet", "NodeState", "build_sim", "sweep",
-           "simulate"]
+__all__ = ["SimFlags", "PolicySet", "NodeState", "build_sim", "build_sweep",
+           "sweep", "simulate"]
 
 F32, I32 = torch.float32, torch.int32
 FAM_PAGE_MULT = 0x61C88647
@@ -452,10 +455,12 @@ def _in_place(step):
     return step_
 
 
-def _capture(step, p, buf, xs, run_window):
+def _capture(step, p, buf, xs, run_window, name=GROUP_RUNNER_NAME):
     """One CUDA graph of ``run_window`` (``len(xs[0])`` in-place steps on
     ``buf``, inputs read from the window buffers ``xs``). Returns (graph,
-    kernel launches per event).
+    kernel launches per event). The capture is reported under ``name``
+    (:func:`repro_torch.analysis.runtime.report_capture`; None reports
+    nothing).
 
     The first capture of a step configuration in the process runs one
     in-place step on a side stream first, on the window's first event,
@@ -474,17 +479,21 @@ def _capture(step, p, buf, xs, run_window):
                 _in_place(step)(p, buf, tuple(x[0] for x in xs))
             torch.cuda.current_stream(dev).wait_stream(side)
             _warmed.add(key)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved, t0 = torch.cuda.memory_reserved(dev), time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = fused_cache_step.launches
-        with torch.cuda.graph(graph):
-            run_window()
+        # the capture's own synchronizes (this one and torch.cuda.graph's)
+        # are explicit: they bracket the capture, nothing runs in them
+        with explicit_fetch():
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved, t0 = torch.cuda.memory_reserved(dev), time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            before = fused_cache_step.launches
+            with torch.cuda.graph(graph):
+                run_window()
     per_event = (fused_cache_step.launches - before) // len(xs[0])
     fused_cache_step.launches = launches
     last_graph.update(pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
                       capture_s=time.perf_counter() - t0)
+    report_capture(name)
     return graph, per_event
 
 
@@ -526,7 +535,8 @@ def _drive(run_window, graph, per_event, xs, events, T):
         else:
             graph.replay()
     if graph is not None:
-        torch.cuda.synchronize(xs[0].device)
+        with explicit_fetch():                 # the reference's block_until_ready
+            torch.cuda.synchronize(xs[0].device)
         fused_cache_step.launches += per_event * T
         last_graph.update(events=window, replays=n_windows,
                           padded=n_windows * window - T,
@@ -582,13 +592,16 @@ class GroupRunner:
     buffers run step by step. Everything else the steps see is computed
     from those buffers (:meth:`drive` runs the events from a given carry).
     A call whose shapes differ from the first raises. ``eager=True`` runs the steps on the card without a graph, for
-    comparison.
+    comparison. ``name`` is what the runner's capture is reported under
+    (:mod:`repro_torch.analysis.runtime`: the executor names each group's
+    runner ``famsim_group__<key digest>``; None reports nothing).
     """
 
     def __init__(self, cfg: FamConfig, num_nodes: int,
                  pad_sets: Optional[int] = None, pad_ways: Optional[int] = None,
-                 policies: Optional[PolicySet] = None, *, eager: bool = False):
-        self.cfg, self.num_nodes = cfg, num_nodes
+                 policies: Optional[PolicySet] = None, *, eager: bool = False,
+                 name: Optional[str] = GROUP_RUNNER_NAME):
+        self.cfg, self.num_nodes, self.name = cfg, num_nodes, name
         self.pad_sets, self.pad_ways, self.policies = pad_sets, pad_ways, policies
         self.eager, self.window = eager, GRAPH_EVENTS
         self.step = _make_step(cfg, num_nodes, policies)
@@ -677,7 +690,7 @@ class GroupRunner:
         with torch.cuda.device(addrs.device) if on_card else contextlib.nullcontext():
             if on_card and not self.eager and self.graph is None:
                 self.graph, self.per_event = _capture(self.step, self.pn, self.buf,
-                                                      self.xs, self.run_window)
+                                                      self.xs, self.run_window, self.name)
                 self.pool_bytes = int(last_graph["pool_bytes"])
             _drive(self.run_window, None if self.eager else self.graph, self.per_event,
                    self.xs, events, addrs.shape[-1])
@@ -697,6 +710,40 @@ def _make_run(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
             p, addrs, gaps, full(T), full(int(T * warmup_frac)))
 
     return run
+
+
+#: build_sweep's runners: one a (static shape, nodes, warmup, policy tags)
+_SWEEP_CACHE: Dict = {}
+
+
+def build_sweep(cfg: FamConfig, num_nodes: int, warmup_frac: float = 0.2,
+                policies: Optional[PolicySet] = None):
+    """Batched runner: fn(params_batch, addrs (S, N, T), gaps (S, N, T))
+    -> metrics dict of (S, N) tensors, on the traces' device.
+
+    One entry per ``(cfg.static_shape(), num_nodes, warmup_frac, policy
+    compile tags)``, as the reference's: every sweep point that only varies
+    per-system values (flags, block size, policy numeric params, any cache
+    geometry fitting the donor's allocation) reuses it. An entry keeps one
+    :class:`GroupRunner` a trace shape and device (the reference's jit
+    retraces on a new shape): a later call of that shape refills its
+    buffers and, on the card, replays its graph."""
+    policies = _resolve(policies)
+    key = (cfg.static_shape(), num_nodes, warmup_frac, policies.compile_tags())
+    if key not in _SWEEP_CACHE:
+        runners: Dict = {}
+
+        def run(params_batch: FamParams, addrs, gaps):
+            S, T = addrs.shape[0], addrs.shape[-1]
+            shape = (tuple(addrs.shape), addrs.device)
+            if shape not in runners:
+                runners[shape] = GroupRunner(cfg, num_nodes, policies=policies)
+            full = lambda v: torch.full((S,), v, dtype=I32, device=addrs.device)
+            return runners[shape](params_batch, addrs, gaps, full(T),
+                                  full(int(T * warmup_frac)))
+
+        _SWEEP_CACHE[key] = run
+    return _SWEEP_CACHE[key]
 
 
 def build_sim(cfg: FamConfig, flags: SimFlags, num_nodes: int,

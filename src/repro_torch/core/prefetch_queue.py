@@ -1,6 +1,7 @@
 """Prefetch queue — fixed-length in-flight window at the root complex
 (paper §III-A2). Counterpart of ``repro.core.prefetch_queue``, batched
-over leading lane dimensions; ``try_insert`` writes in place.
+over leading lane dimensions; ``try_insert`` and ``complete_until`` write
+in place.
 """
 from __future__ import annotations
 
@@ -55,3 +56,16 @@ def try_insert(q: PrefetchQueue, block_addr, finish_time,
     q.block.scatter_(-1, slot, torch.where(ok, block_addr + 1, old_b).unsqueeze(-1))
     q.finish.scatter_(-1, slot, torch.where(ok, finish_time, old_f).unsqueeze(-1))
     return q, ok
+
+
+def complete_until(q: PrefetchQueue, now) -> Tuple[PrefetchQueue, torch.Tensor, torch.Tensor]:
+    """Retire all entries with finish <= now (``now`` has the lane shape).
+
+    Returns (queue, completed_blocks (*B, Q), completed_mask (*B, Q)) so
+    the caller can fill the DRAM cache for each completed prefetch; the
+    retired slots are emptied in place."""
+    now = torch.as_tensor(now, dtype=q.finish.dtype, device=q.finish.device)
+    done = (q.block > 0) & (q.finish <= now[..., None])
+    blocks = torch.where(done, q.block - 1, -1)
+    q.block.copy_(torch.where(done, 0, q.block))
+    return q, blocks, done

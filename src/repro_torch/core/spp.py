@@ -149,3 +149,10 @@ def predict(cfg: FamConfig, s: SppState, page, block, sig, degree: int,
     blocks = torch.stack(outs, -1)
     valid = blocks >= 0
     return page[..., None] * bpp[..., None] + torch.clamp(blocks, min=0), valid
+
+
+def storage_bits(cfg: FamConfig) -> int:
+    """Rough metadata budget (paper: ~11 kB, 2x SPP)."""
+    st = cfg.spp_signature_entries * (16 + 6 + cfg.spp_signature_bits)
+    pt = cfg.spp_pattern_entries * (PT_WAYS * (7 + 4) + 8)
+    return st + pt

@@ -27,8 +27,11 @@ class ThrottleState(NamedTuple):
 def init_throttle(p, shape) -> ThrottleState:
     """``p``: a ``FamParams`` whose fields broadcast to ``shape``."""
     dev = p.fam_mem_latency.device
-    f = lambda v: torch.broadcast_to(
-        torch.as_tensor(v, dtype=torch.float32, device=dev), shape).clone()
+
+    def f(v):          # a Python number is filled on the device, not copied
+        if isinstance(v, torch.Tensor):
+            return torch.broadcast_to(v.to(torch.float32), shape).clone()
+        return torch.full(shape, v, dtype=torch.float32, device=dev)
     # minimum achievable demand latency: seeded with the unloaded fabric +
     # DDR latency (the EMA-min refines it)
     unloaded = (p.fam_mem_latency + p.cxl_min_latency_cycles

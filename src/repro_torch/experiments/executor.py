@@ -41,6 +41,16 @@ which on the card holds the ``compile`` span of its graph capture and
 closes after the replays' synchronize) and ``fetch`` (the copy of the
 metrics to the host); ``RunInfo.spans`` summarizes them.
 
+With ``assert_compiles=True`` ``execute`` runs its groups under
+:mod:`repro_torch.analysis.runtime`'s ``CompileWatcher`` and sync guard,
+as the reference's does: every runner is named
+``famsim_group__<key digest>``, the capture site reports each capture of
+it, and ``RunInfo.xla_compiles`` (the reference's name) is the watcher's
+count, asserted equal to ``compiles`` and at most ``planned_groups``;
+any host sync inside the groups raises on the card but for the
+executor's fetch of results and the runner's synchronize after its
+replays (``explicit_fetch``), so uploads are asynchronous.
+
 Sharding (``execute(devices=D)``, the reference's ``("shard", D)``
 mode): each group's system axis is padded up the canonical grid until D
 divides it (:func:`_pad_systems`) and split into D contiguous shards. On
@@ -69,6 +79,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import (GROUP_RUNNER_NAME, CompileWatcher,
+                                          explicit_fetch, no_implicit_transfers)
 from repro_torch.core import famsim
 from repro_torch.core.fam_params import FamParams, stack_params, tree_map
 from repro_torch.device import resolve_device
@@ -95,7 +107,9 @@ class RunInfo:
     #: cache miss on the card, none on a hit, none on the CPU
     compiles: int = 0
     planned_groups: int = 0        # deterministic, unlike ``compiles``
-    #: the reference's count of XLA compiles; the port has none (-1)
+    #: captures of group runners the CompileWatcher saw under
+    #: ``assert_compiles`` (the reference's count of XLA compiles of group
+    #: executables); -1 without it
     xla_compiles: int = -1
     compile_s: float = 0.0         # seconds of those captures
     run_s: float = 0.0             # runner wall, captures and trace generation excluded
@@ -383,8 +397,19 @@ def exec_cache_bytes() -> int:
 
 
 def _sync(dev: torch.device):
+    """An explicit synchronize, for the device trace generation's seconds."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with explicit_fetch():
+            torch.cuda.synchronize(dev)
+
+
+def _upload(x, dev: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``dev``, copied without making the host
+    wait for the device (from pageable memory the copy is staged before
+    this returns, so the source may change afterwards)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(dev, non_blocking=True)
 
 
 def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
@@ -392,7 +417,7 @@ def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
     """One runner call on ``dev``. Returns (metrics of the S systems as
     numpy, accounting: capture seconds, run seconds, device trace
     generation seconds, cache-step kernel launches)."""
-    p = tree_map(lambda t: t.to(dev), data.params)
+    p = tree_map(lambda t: _upload(t, dev), data.params)
     gen_s = 0.0
     if trace_backend == "device":
         from repro_torch.traces.device import node_generator, to_tensors
@@ -402,10 +427,10 @@ def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
         _sync(dev)
         gen_s = time.perf_counter() - t0
     else:
-        addrs = torch.as_tensor(data.inputs[0], device=dev)
-        gaps = torch.as_tensor(data.inputs[1], device=dev)
-    t_true = torch.as_tensor(data.t_true, device=dev)
-    warm_start = torch.as_tensor(data.warm_start, device=dev)
+        addrs = _upload(data.inputs[0], dev)
+        gaps = _upload(data.inputs[1], dev)
+    t_true = _upload(data.t_true, dev)
+    warm_start = _upload(data.warm_start, dev)
     famsim.last_graph.clear()
     launches = fused_cache_step.launches
     t0 = time.perf_counter()
@@ -413,7 +438,7 @@ def _run_group(data: _GroupData, run, dev: torch.device, t_pad: int,
     # closes on the device's work, not on its launches
     with maybe_span("device_call"):
         out = run(p, addrs, gaps, t_true, warm_start)
-    with maybe_span("fetch"):
+    with maybe_span("fetch"), explicit_fetch():
         out = {k: v.cpu().numpy() for k, v in out.items()}
     wall = time.perf_counter() - t0
     capture_s = famsim.last_graph.get("capture_s")
@@ -464,8 +489,11 @@ def _run_mode(data: _GroupData, key, mode, rep, g, dev: torch.device,
         run = _EXEC_CACHE.get(ckey)
         hits.append(run is not None)
         if run is None:
+            # a sharded group's captures (one a card) report once, by its
+            # first shard's runner: the reference's one SPMD executable
             run = famsim.GroupRunner(rep.cfg, g.key.num_nodes, g.pad_sets, g.pad_ways,
-                                     policies=rep.policy_set())
+                                     policies=rep.policy_set(),
+                                     name=_runner_name(key) if i == 0 else None)
         out, acct = _run_group(shard, run, sdev, g.t_pad, trace_backend)
         # cached once it has run, so a failed first run leaves nothing
         _EXEC_CACHE[ckey] = run
@@ -477,6 +505,11 @@ def _run_mode(data: _GroupData, key, mode, rep, g, dev: torch.device,
     for k in ("capture_s", "run_s", "trace_device_s", "launches"):
         acct[k] = sum(a[k] for a in accts)
     return out, acct, all(hits)
+
+
+def _runner_name(key) -> str:
+    """The name a group's runner reports its capture under."""
+    return f"{GROUP_RUNNER_NAME}__{_key_digest(key)}"
 
 
 def _pad_systems(idxs: Sequence[int], s_pad: int, D: int = 1) -> List[int]:
@@ -529,7 +562,10 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
     assert_compiles: assert the capture accounting: one lookup of the
         runner cache a group (``exec_cache_hits + exec_cache_misses ==
         planned_groups``), and one capture a miss on the card
-        (``compiles == exec_cache_misses``), none on the CPU.
+        (``compiles == exec_cache_misses``), none on the CPU; run the
+        groups under the ``CompileWatcher`` and the sync guard
+        (:mod:`repro_torch.analysis.runtime`) and assert the captures it
+        saw: ``xla_compiles == compiles <= planned_groups``.
     """
     t_start = time.perf_counter()
     backend = validate_backend(trace_backend or plan.trace_backend)
@@ -560,11 +596,16 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
         backend == "numpy" and len(plan.groups) > 1 else None
     group0 = None
     # the whole-execute span closes before the cross-check, as the
-    # reference's does
+    # reference's does; so do the watcher and the guard (the cross-checks'
+    # captures are not group runs)
     sentry = ExitStack()
+    watcher = None
     sentry.enter_context(maybe_span("execute", groups=plan.num_groups,
                                     points=plan.num_points, backend=backend,
                                     devices=D))
+    if assert_compiles:
+        watcher = sentry.enter_context(CompileWatcher())
+        sentry.enter_context(no_implicit_transfers())
     try:
         pending: Optional[Future] = None
         if pool is not None:
@@ -579,6 +620,7 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             S_exec = len(exec_idxs[gi])
             N, t_pad = g.key.num_nodes, g.t_pad
             rep = plan.points[g.indices[0]]
+            seen = watcher.by_name if watcher is not None else {}
             with maybe_span("run", group=gi, key_digest=_key_digest(keys[gi]),
                             S=S_exec, N=N, T_pad=t_pad):
                 out, acct, hit = _run_mode(data, keys[gi], mode, rep, g, dev, backend)
@@ -599,7 +641,7 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
             info.padded_systems += S_exec - g.size
             info.host_trace_events += data.host_trace_events
             info.trace_gen_s += data.prep_s
-            info.groups.append({
+            entry = {
                 "static_shape": str(g.key.static_shape),
                 "S": g.size, "S_exec": S_exec, "N": N, "T_pad": t_pad,
                 "pad_sets": g.pad_sets, "pad_ways": g.pad_ways,
@@ -609,7 +651,13 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
                 "fresh_compile": acct["captured"],
                 "exec_cache_hit": hit,
                 "launches": acct["launches"],
-                "key_digest": _key_digest(keys[gi])})
+                "key_digest": _key_digest(keys[gi])}
+            if watcher is not None:
+                # captures attributed to THIS group by its digest-suffixed
+                # runner name (CompileWatcher.by_name delta)
+                name = _runner_name(keys[gi])
+                entry["xla_compiles"] = watcher.by_name.get(name, 0) - seen.get(name, 0)
+            info.groups.append(entry)
             for j, i in enumerate(g.indices):
                 results[i] = {k: v[j] for k, v in out.items()}
     finally:
@@ -626,6 +674,14 @@ def execute(plan: Plan, *, devices: Optional[int] = None,
                 f"cache hit(s) and {info.exec_cache_misses} miss(es) for "
                 f"{plan.num_groups} planned group(s) on {dev}; expected {want} "
                 "capture(s) and one lookup a group", info.groups)
+        info.xla_compiles = watcher.count
+        assert info.xla_compiles == info.compiles <= info.planned_groups, (
+            "runtime compile-count assertion failed: observed "
+            f"{info.xla_compiles} capture(s) of group runners, "
+            f"accounted {info.compiles} fresh capture(s), planned "
+            f"{info.planned_groups} group(s) — an unplanned recapture "
+            "means something traced leaked into a runner key (run "
+            "python -m repro_torch.analysis)", info.groups)
 
     if cross_check_shard and plan.groups:
         info.shard_check, info.shard_check_run_s = _shard_cross_check(

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.attention import _whole, _WholeGrad, split_heads
 from repro_torch.models.layers import dense_init, normal, param, torch_dtype
 from repro_torch.parallel.sharding import is_dtensor, spmd
 
@@ -96,12 +97,21 @@ def _mlstm_inputs(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
     B, S, _ = x.shape
     dt = x.dtype
     main, z = (x @ p.up.to(dt)).chunk(2, dim=-1)
-    q = (main @ p.wq.to(dt)).reshape(B, S, H, dk) / np.sqrt(dk)
-    k = (main @ p.wk.to(dt)).reshape(B, S, H, dk) / np.sqrt(dk)
-    v = (main @ p.wv.to(dt)).reshape(B, S, H, dk)
-    gif = (main @ p.wif.to(dt)).to(F32).reshape(B, S, H, 2)
+    q = split_heads(main @ p.wq.to(dt), H, dk) / np.sqrt(dk)
+    k = split_heads(main @ p.wk.to(dt), H, dk) / np.sqrt(dk)
+    v = split_heads(main @ p.wv.to(dt), H, dk)
+    gif = split_heads((main @ p.wif.to(dt)).to(F32), H, 2)
     log_f = _logsigmoid(gif[..., 1] + 3.0)   # bias toward remembering
     return main, z, q, k, v, gif[..., 0], log_f
+
+
+def _merge_heads(h: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, heads, D) -> (B, S, heads * D). On a DTensor the backward
+    gathers the cotangent's last dim where the model axis does not divide
+    ``heads``, so it splits back into the heads (as ``attention.out_proj``
+    does)."""
+    h = h.reshape(h.shape[:2] + (-1,))
+    return _WholeGrad.apply(h, -1, heads) if is_dtensor(h) else h
 
 
 def _mlstm_out(cfg: ModelConfig, p: MLSTM, h, main, z):
@@ -125,7 +135,7 @@ def apply_mlstm(cfg: ModelConfig, p: MLSTM, x: torch.Tensor, state: Optional[Sta
     for t in range(S):
         h, st = mlstm_cell(q[:, t], k[:, t], v[:, t], log_i[:, t], log_f[:, t], st)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d_in)
+    h = _merge_heads(torch.stack(hs, dim=1), H)
     return _mlstm_out(cfg, p, h, main, z), {"C": st[0], "n": st[1], "m": st[2]}
 
 
@@ -183,7 +193,10 @@ def apply_slstm(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, state: Optional[Sta
     H, dh, d_up = _slstm_dims(cfg)
     B, S, d = x.shape
     dt = x.dtype
-    gx = (x @ p.wx.to(dt)).to(F32).reshape(B, S, 4, H, dh)
+    gx = (x @ p.wx.to(dt)).to(F32)
+    if is_dtensor(gx):
+        gx = _whole(gx, -1, 4)
+    gx = gx.reshape(B, S, 4, H, dh)
     if state is None:
         state = init_slstm_state(cfg, B, x.device)
     st = (state["c"], state["n"], state["h"], state["m"])
@@ -192,7 +205,7 @@ def apply_slstm(cfg: ModelConfig, p: SLSTM, x: torch.Tensor, state: Optional[Sta
     for t in range(S):
         h, st = slstm_cell(gx[:, t], r, st)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(dt)
+    h = _merge_heads(torch.stack(hs, dim=1), H).to(dt)
     a, b = (h @ p.up.to(dt)).chunk(2, dim=-1)
     # jax.nn.gelu is the tanh approximation
     y = (F.gelu(a, approximate="tanh") * b) @ p.down.to(dt)
@@ -367,5 +380,5 @@ def apply_mlstm_chunked(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
         carry, h = _mlstm_chunk(carry, q[:, :, sl], k[:, :, sl], v[:, :, sl],
                                 li[:, :, sl], lf[:, :, sl])
         hs.append(h)
-    h = torch.cat(hs, dim=2).movedim(1, 2).reshape(B, S, d_in)
+    h = _merge_heads(torch.cat(hs, dim=2).movedim(1, 2), H)
     return _mlstm_out(cfg, p, h, main, z), {"C": carry[0], "n": carry[1], "m": carry[2]}

@@ -112,8 +112,9 @@ def window_index(i, t_true, n_windows: int) -> torch.Tensor:
 def constants(device: torch.device):
     """(``LAT_EDGES`` as f32, the bucket indices ``arange(N_BUCKETS)``) on
     ``device``: made once per device, before the first capture, so a
-    captured step copies nothing from the host."""
-    return (torch.tensor(LAT_EDGES, dtype=F32, device=device),
+    captured step copies nothing from the host; the edges are uploaded
+    without making the host wait for the device."""
+    return (torch.tensor(LAT_EDGES, dtype=F32).to(device, non_blocking=True),
             torch.arange(N_BUCKETS, dtype=torch.int64, device=device))
 
 

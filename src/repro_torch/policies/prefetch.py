@@ -90,8 +90,9 @@ BO_OFFSETS = (1, 2, 3, 4, 6, 8, -1, -2)
 def _bo_offsets(device) -> torch.Tensor:
     """BO_OFFSETS on ``device``, made once: a step's first call on a device
     runs before any CUDA graph capture of it (the warm-up step), and a
-    copy from the host is not allowed inside a capture."""
-    return torch.tensor(BO_OFFSETS, dtype=torch.int32, device=device)
+    copy from the host is not allowed inside a capture. The upload does
+    not make the host wait for the device."""
+    return torch.tensor(BO_OFFSETS, dtype=torch.int32).to(device, non_blocking=True)
 
 
 class BoState(NamedTuple):

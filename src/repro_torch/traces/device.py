@@ -131,11 +131,12 @@ def stack_system_params(systems: Sequence[TraceParams]) -> TraceParams:
 
 def to_tensors(tp: TraceParams, device) -> TraceParams:
     """The numpy encoding as tensors on ``device`` (the key as int64 holding
-    its uint32 words)."""
+    its uint32 words), copied without making the host wait for the device
+    (from pageable memory a copy is staged before it returns)."""
     def conv(x):
         x = np.asarray(x)
-        dtype = torch.int64 if x.dtype == np.uint32 else None
-        return torch.as_tensor(x.astype(np.int64) if dtype else x, device=device)
+        x = np.ascontiguousarray(x.astype(np.int64) if x.dtype == np.uint32 else x)
+        return torch.from_numpy(x).to(device, non_blocking=True)
     return TraceParams(*(conv(x) for x in tp))
 
 
@@ -170,7 +171,8 @@ def generate(tp: TraceParams, T: int, parts: bool = False):
     d = draws(tp, T)
     raw, u, uni = d["raw"], d["u"], d["uni"]
     dev = raw.device
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    # filled on the device: torch.tensor would copy each from the host
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
     col = lambda t: t[..., None]
     n = col(tp.n_lines)
 

@@ -115,26 +115,43 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _as_int(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int64, device=like.device)
+    """``v`` as int64 on ``like``'s device; a Python number is filled there
+    (``torch.as_tensor`` would copy it from the host, a sync)."""
+    if isinstance(v, torch.Tensor):
+        return torch.as_tensor(v, dtype=torch.int64, device=like.device)
+    return torch.full((), int(v), dtype=torch.int64, device=like.device)
 
 
-def _is_int32(v) -> bool:
-    """An int32 tensor: within int32 by its type, so its bounds need no
-    check (a check would sync the host, which a CUDA graph forbids)."""
-    return isinstance(v, torch.Tensor) and v.dtype == torch.int32
+def _as_float(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as float32 on ``like``'s device, as :func:`_as_int`."""
+    if isinstance(v, torch.Tensor):
+        return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    return torch.full((), float(v), dtype=torch.float32, device=like.device)
+
+
+def _beyond_int32(v, t: torch.Tensor, upper: bool) -> bool:
+    """Whether the bound ``v`` (as ``t``) lies beyond int32 on its side
+    (above for ``upper``, else below): never for an int32 tensor (by its
+    type), a Python integer by its value; only another tensor is read on
+    the device (a sync, which a CUDA graph forbids)."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.int32:
+            return False
+        return bool((t > 2 ** 31 - 1).any() if upper else (t < -2 ** 31).any())
+    return int(v) > 2 ** 31 - 1 if upper else int(v) < -2 ** 31
 
 
 def randint(k: torch.Tensor, shape: Shape, minval, maxval) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32). ``minval``
     and ``maxval`` are ints or integer tensors that broadcast against
     ``k.shape[:-1] + shape`` (a per-lane bound is shaped ``(..., 1)``),
-    within int32 (checked unless both are int32 tensors)."""
+    within int32 (checked on the host, or on the device for a tensor that
+    is not int32)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     k1, k2 = split(k).unbind(-2)
     higher, lower = random_bits(k1, shape), random_bits(k2, shape)
     lo, hi = _as_int(minval, k), _as_int(maxval, k)
-    if not (_is_int32(minval) and _is_int32(maxval)) and (
-            bool((hi > 2 ** 31 - 1).any()) or bool((lo < -2 ** 31).any())):
+    if _beyond_int32(maxval, hi, True) or _beyond_int32(minval, lo, False):
         raise ValueError("randint bounds must lie within int32")
     span = (hi - lo) & M32
     span = torch.where(hi <= lo, torch.ones_like(span), span)
@@ -149,8 +166,7 @@ def uniform(k: torch.Tensor, shape: Shape, minval=0.0, maxval=1.0) -> torch.Tens
     """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
     bits = random_bits(k, shape)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.as_tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.as_tensor(maxval, dtype=torch.float32, device=k.device)
+    lo, hi = _as_float(minval, k), _as_float(maxval, k)
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the
     # product is exact in float64, so the sum is taken there and rounded
     # to float32 (two float32 roundings differ in ~40 % of draws)

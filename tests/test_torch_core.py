@@ -128,6 +128,33 @@ def test_prefetch_queue_exact(seed):
     assert int(0.95 * Q) == 15 and not tok[-1]   # the full queue refuses
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prefetch_queue_complete_until_exact(seed):
+    """``complete_until`` retires the entries finished by each lane's
+    ``now``: the queue, the completed blocks and the mask bit for bit."""
+    rng = np.random.default_rng(seed)
+    Q = 16
+    occupied = rng.random((L, Q)) < 0.6
+    block = np.where(occupied, rng.integers(1, 30, (L, Q)), 0).astype(np.int32)
+    finish = rng.random((L, Q)).astype(np.float32) * 100
+    now = (rng.random(L) * 100).astype(np.float32)
+    now[0] = finish[0, 0]                        # finish == now retires
+    jq, jb, jd = jax.jit(jax.vmap(jpq.complete_until))(
+        jpq.PrefetchQueue(block, finish), now)
+    tq = tpq.PrefetchQueue(torch.from_numpy(block.copy()), torch.from_numpy(finish.copy()))
+    tq2, tb, td = tpq.complete_until(tq, torch.from_numpy(now))
+    _assert_tree_equal(jq, tq2)
+    np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    assert td.any() and (~td & (tq.block > 0)).any()
+
+
+def test_spp_storage_bits_equal_reference():
+    for kw in (dict(), dict(spp_signature_entries=64, spp_pattern_entries=256),
+               dict(spp_signature_bits=8)):
+        assert tspp.storage_bits(FamConfig(**kw)) == jspp.storage_bits(JFamConfig(**kw)), kw
+
+
 def _random_throttle(rng):
     f = lambda lo, hi: (lo + (hi - lo) * rng.random(L)).astype(np.float32)
     return jthr.ThrottleState(
@@ -244,6 +271,18 @@ def test_address_split_and_fam_page_hash():
         np.testing.assert_array_equal(
             np.asarray(jaddr.dyn_block_addr(jnp.asarray(addr), jnp.int32(bb))),
             taddr.dyn_block_addr(torch.from_numpy(addr), bbt).numpy())
+    for bytes_ in (64, 128, 256, 512, 1024, 4096):
+        assert taddr.blocks_per_page(bytes_) == jaddr.blocks_per_page(bytes_)
+        jp, jb = jaddr.split(jnp.asarray(addr), bytes_)
+        tp_, tb_ = taddr.split(torch.from_numpy(addr), bytes_)
+        np.testing.assert_array_equal(np.asarray(jp), tp_.numpy())
+        np.testing.assert_array_equal(np.asarray(jb), tb_.numpy())
+        np.testing.assert_array_equal(np.asarray(jaddr.block_addr(jnp.asarray(addr), bytes_)),
+                                      taddr.block_addr(torch.from_numpy(addr), bytes_).numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jaddr.from_page_block(jp, jb, bytes_)),
+            taddr.from_page_block(tp_, tb_, bytes_).numpy())
+        assert taddr.split(int(addr[0]), bytes_) == jaddr.split(int(addr[0]), bytes_)
     page = addr >> 12
     for ratio in (1, 3, 8):
         np.testing.assert_array_equal(
@@ -272,26 +311,36 @@ def test_params_from_numpy_match_port_params(flags):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """No module of the port nor chip_smoke.py imports jax or the JAX
-    package, by source and at run time (the simulator, the traces, the
-    search with its objectives and fig_search, parallel/ with the sharded run,
-    the launchers, the expert-parallel MoE, the model zoo and the train
-    steps with the buffered decode and the abstract state)."""
+    """No module of the port, no ``examples/torch_*.py`` nor chip_smoke.py
+    imports jax or the JAX package, by source and at run time (the
+    simulator, the traces, the search with its objectives and fig_search,
+    parallel/ with the sharded run, the launchers, the expert-parallel MoE,
+    the model zoo and the train steps with the buffered decode and the
+    abstract state, the analyzer with its runtime half, and the four
+    examples)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)", re.M)
-    files = list((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = list((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + \
+        examples
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
-    code = ("import sys, repro_torch.core.famsim, repro_torch.traces, repro_torch.search, "
+    code = ("import sys, importlib.util, pathlib, repro_torch.core.famsim, "
+            "repro_torch.traces, repro_torch.search, "
             "repro_torch.search.loop, repro_torch.tenants.search, "
             "repro_torch.benchmarks.fig_search, repro_torch.parallel, "
             "repro_torch.parallel.compat, repro_torch.parallel.compression, "
             "repro_torch.parallel.pipeline, repro_torch.launch.mesh, "
             "repro_torch.launch.train, repro_torch.models.moe, "
-            "repro_torch.models.model_zoo, repro_torch.train.steps; "
+            "repro_torch.models.model_zoo, repro_torch.train.steps, "
+            "repro_torch.analysis, repro_torch.analysis.runtime; "
+            "specs = [importlib.util.spec_from_file_location(p.stem, p) "
+            "for p in sorted(pathlib.Path(sys.argv[1]).glob('torch_*.py'))]; "
+            "[s.loader.exec_module(importlib.util.module_from_spec(s)) for s in specs]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True,
+            "assert len(specs) == 4 and not bad, bad")
+    subprocess.run([sys.executable, "-c", code, str(REPO / "examples")], check=True,
                    env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
 
 

@@ -132,3 +132,37 @@ def test_set_hash_matches_reference():
         want = np.asarray(jdc._set_index(jnp.asarray(a), jnp.int32(n)))
         got = tdc._set_index(torch.from_numpy(a), n).numpy()
         np.testing.assert_array_equal(want, got)
+
+
+@pytest.mark.parametrize("srrip", [False, True])
+def test_invalidate_matches_reference_on_padded_lanes(srrip):
+    """Inserts, then invalidations of cached and absent blocks, per lane at
+    each lane's effective geometry: the state bit for bit after each
+    invalidation (only the hit's tag cleared, recency kept)."""
+    rng = np.random.default_rng(11)
+    j_insert = _jax_ops(srrip)[0]
+    j_inv = jax.jit(jax.vmap(lambda s, b, n, w: jdc.invalidate(s, b, num_sets=n, ways=w)))
+    tpol = T_SRRIP.bind(None) if srrip else None
+    L = len(LANE_GEOMETRIES)
+    sets = np.array([g[0] for g in LANE_GEOMETRIES], np.int32)
+    ways = np.array([g[1] for g in LANE_GEOMETRIES], np.int32)
+    js = jax.tree.map(lambda x: np.broadcast_to(x, (L,) + x.shape),
+                      jdc.init_cache(PAD_SETS, PAD_WAYS))
+    ts = tdc.init_cache(PAD_SETS, PAD_WAYS, batch=(L,))
+    t_sets, t_ways = torch.from_numpy(sets), torch.from_numpy(ways)
+    inserted = []
+    for _ in range(20):
+        blk = rng.integers(0, 2 * PAD_SETS * PAD_WAYS, L).astype(np.int32)
+        inserted.append(blk)
+        ts = tdc.insert(ts, torch.from_numpy(blk), torch.ones(L, dtype=torch.bool),
+                        t_sets, t_ways, policy=tpol)[0]
+        js = j_insert(js, blk, np.ones(L, bool), sets, ways)[0]
+    hits = 0
+    for k in range(12):
+        blk = inserted[-1 - k] if k % 2 == 0 else \
+            rng.integers(0, 2 * PAD_SETS * PAD_WAYS, L).astype(np.int32)
+        hits += int(tdc.lookup(ts, torch.from_numpy(blk), t_sets, t_ways)[0].sum())
+        ts = tdc.invalidate(ts, torch.from_numpy(blk), t_sets, t_ways)
+        js = j_inv(js, blk, sets, ways)
+        _check_state(js, ts, LANE_GEOMETRIES)
+    assert hits > 0

@@ -14,6 +14,13 @@
   exactly equal; per-device flops within FLOPS_TOL (the port counts the
   ops it runs, XLA the ops it kept after fusion and simplification; the
   ratio is printed); the collective kinds present are listed;
+* one xLSTM cell (xlstm-350m ``train_4k`` at 2 layers, its sequence cut
+  to XLSTM_SEQ tokens) on a 1 x 8 mesh, whose model axis does not divide
+  the config's 4 heads: the port's ``run_cell`` records ``ok``, and the
+  record is held to the reference's ``lower_cell`` as the cells above,
+  but for the per-device flops: the port gathers the heads and runs the
+  mLSTM recurrence whole on every model rank where XLA splits it, so its
+  count is XLSTM_FLOPS_RATIO times the reference's (within FLOPS_TOL);
 * the extension cell and each perf variant at the cut size (2 layers;
   the arctic variants at 1 layer on a 16 x 2 mesh, which keeps each
   rank's MoE token chunks few, as their microbatches run the layers up
@@ -44,6 +51,13 @@ REPO = Path(__file__).resolve().parents[1]
 LAYERS = 2
 MESH = (2, 4)
 CELLS = {"dense": ("granite-3-2b", "train_4k"), "moe": ("granite-moe-1b-a400m", "decode_32k")}
+#: the xLSTM cell: 4 heads on a model axis of 8, a sequence cut for the
+#: sLSTM's step a token
+XLSTM_CELL, XLSTM_MESH, XLSTM_SEQ = ("xlstm-350m", "train_4k"), (1, 8), 16
+#: the xLSTM cell's per-device flops, port over reference: the mLSTM
+#: recurrence (about a third of the cell's work) runs replicated on the 8
+#: model ranks in the port (its heads gathered), split 8 ways by XLA
+XLSTM_FLOPS_RATIO = 1.487
 FLOPS_TOL = 0.10          # |port / reference - 1| of the per-device flops
 SHAPE_ARGS = ("all", "train_4k", "prefill_32k", "decode_32k", "long_500k")
 # the reference record's keys the port replaces: XLA's lower / compile
@@ -89,6 +103,12 @@ REFERENCE = textwrap.dedent("""
     for kind, (arch, shape) in cells.items():
         compiled, info = DR.lower_cell(arch, shape, False)
         out["lowered"][kind] = info
+    (arch, shape), xmesh, xseq = json.loads(sys.argv[5])
+    DR.make_production_mesh = lambda multi_pod=False: make_mesh(tuple(xmesh), ("data", "model"),
+                                                                devices=devs[:8])
+    DR.SHAPES_BY_NAME = {**DR.SHAPES_BY_NAME,
+                         shape: dataclasses.replace(DR.SHAPES_BY_NAME[shape], seq_len=xseq)}
+    out["lowered"]["xlstm"] = DR.lower_cell(arch, shape, False)[1]
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
 """)
@@ -131,6 +151,17 @@ PORT_VARIANTS = textwrap.dedent("""
     with open(sys.argv[1], "w") as f:
         json.dump(infos, f)
 """)
+PORT_XLSTM = textwrap.dedent("""
+    import dataclasses, json, sys
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as DR
+    layers, ((arch, shape), mesh, seq) = int(sys.argv[2]), json.loads(sys.argv[3])
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    info = DR.run_cell(arch, shape, False, None, cfg=cfg, mesh_shape=tuple(mesh), seq_len=seq,
+                       device="cpu")
+    with open(sys.argv[1], "w") as f:
+        json.dump({"xlstm": info}, f)
+""")
 #: the variants' runs, split over subprocesses that run together
 PARTS = ("qwen", "arctic", "xlstm")
 
@@ -138,11 +169,13 @@ PARTS = ("qwen", "arctic", "xlstm")
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun")
-    files = {k: tmp / f"{k}.json" for k in ("reference", "cells") + PARTS}
+    files = {k: tmp / f"{k}.json" for k in ("reference", "cells", "xcell") + PARTS}
+    xlstm = json.dumps([XLSTM_CELL, XLSTM_MESH, XLSTM_SEQ])
     procs = {
         "reference": [REFERENCE, files["reference"], LAYERS, json.dumps(CELLS),
-                      json.dumps(SHAPE_ARGS)],
+                      json.dumps(SHAPE_ARGS), xlstm],
         "cells": [PORT_CELLS, files["cells"], LAYERS, json.dumps(CELLS), json.dumps(MESH)],
+        "xcell": [PORT_XLSTM, files["xcell"], LAYERS, xlstm],
         **{part: [PORT_VARIANTS, files[part], part, LAYERS, json.dumps(MESH), tmp / "out"]
            for part in PARTS},
     }
@@ -155,6 +188,7 @@ def runs(tmp_path_factory):
         assert p.returncode == 0, logs[k][-6000:]
     out = {k: json.loads(f.read_text()) for k, f in files.items()}
     out["variants"] = {k: v for part in PARTS for k, v in out.pop(part).items()}
+    out["cells"].update(out.pop("xcell"))
     out["tmp"] = tmp
     return out
 
@@ -200,10 +234,14 @@ def test_meshes():
     assert DR.mesh_axes((2, 16, 16)) == ("pod", "data", "model")
 
 
-@pytest.mark.parametrize("kind", sorted(CELLS))
+@pytest.mark.parametrize("kind", sorted(CELLS) + ["xlstm"])
 def test_cell_against_reference(runs, kind):
     ref = runs["reference"]["lowered"][kind]
-    got = runs["cells"][kind]
+    got = dict(runs["cells"][kind])
+    if kind == "xlstm":                 # run_cell's record: its status and seconds
+        assert got.pop("status") == "ok", got.get("error")
+        got.pop("seconds")
+        assert get_config(XLSTM_CELL[0]).num_heads % XLSTM_MESH[1]
     assert got["chips"] == ref["chips"] == 8
     assert got["roofline"]["model_flops"] == ref["roofline"]["model_flops"]
     assert got.get("microbatches") == ref.get("microbatches")
@@ -212,12 +250,13 @@ def test_cell_against_reference(runs, kind):
     assert set(got["roofline"]) == set(ref["roofline"])
     assert set(got) == {TIMES.get(k, k) for k in ref} | ADDED
     ratio = got["roofline"]["flops_per_device"] / ref["roofline"]["flops_per_device"]
-    print(f"{kind} {CELLS[kind]}: per-device flops port / reference = {ratio:.4f}; "
+    print(f"{kind} {CELLS.get(kind, XLSTM_CELL)}: per-device flops port / reference = {ratio:.4f}; "
           f"collective kinds port {sorted(got['roofline']['coll_bytes'])}, reference "
           f"{sorted(ref['roofline']['coll_bytes'])}; peak bytes port "
           f"{got['memory']['peak_device_bytes']}, reference "
           f"{ref['memory']['peak_device_bytes']}")
-    assert abs(ratio - 1) < FLOPS_TOL, ratio
+    want = XLSTM_FLOPS_RATIO if kind == "xlstm" else 1.0
+    assert abs(ratio / want - 1) < FLOPS_TOL, ratio
     assert got["roofline"]["xla_flops_once"] == got["roofline"]["flops_per_device"]
 
 
@@ -267,4 +306,4 @@ def test_variants_write_only_under_out(runs):
     assert infos["qwen-buffered-int8"]["variant"] == "buffered_w64_int8"
     # nothing else in the runs' directory but the records and the outputs
     assert sorted(p.name for p in runs["tmp"].iterdir()) == \
-        sorted(["out"] + [f"{k}.json" for k in ("reference", "cells") + PARTS])
+        sorted(["out"] + [f"{k}.json" for k in ("reference", "cells", "xcell") + PARTS])

@@ -22,6 +22,11 @@
   the blocks are JAX's global ones only if each row is quantized whole;
   and the dense config's adamw step at (2, 2) in 2 microbatches, each
   rank splitting its own rows;
+* the xLSTM smoke config (2 heads) at (1, 4), a model axis that does not
+  divide its heads (each projection gathered before its head reshape,
+  ``xlstm._merge_heads``' backward gathering the cotangent): the sharded
+  logits and every gradient against the port's replicated run and the
+  reference's jitted forward and jax.grad at (1, 4);
 * on ``single_device_context``'s one-rank mesh, in this process, the
   sharded MoE forward equals the plain model's bit for bit and one
   ``adamw_q8`` step moves the parameters as on the plain model.
@@ -52,6 +57,8 @@ from test_torch_moe_ep import _env
 ARCHS = [a + "-smoke" for a in t_registry.ARCH_IDS]
 TRAIN = {"dense": "granite-3-2b-smoke", "moe": "granite-moe-1b-a400m-smoke"}
 TRAIN_MESHES = {"22": (2, 2), "14": (1, 4)}
+#: the xLSTM case: 2 heads on a model axis of 4
+XLSTM, XLSTM_MESH = "xlstm-350m-smoke", (1, 4)
 OPTIMIZERS = ("adamw", "adamw_q8")
 B, S = 4, 16
 # AdamW with a visible first step: no warmup, an eps above the gradients'
@@ -79,6 +86,7 @@ REFERENCE = textwrap.dedent("""
     out_dir = Path(sys.argv[1])
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[2:6])
     B, S = int(sys.argv[6]), int(sys.argv[7])
+    xl_arch, xl_mesh = sys.argv[8], json.loads(sys.argv[9])
     MICROBATCHES = 2
 
     def flat(tree):
@@ -172,6 +180,13 @@ REFERENCE = textwrap.dedent("""
                     out[f"step/{tag}/{k}"] = v
                 out[f"loss/{tag}"] = np.asarray(metrics["loss"])
                 out[f"gnorm/{tag}"] = np.asarray(metrics["grad_norm"])
+    cfg = cfg_of(xl_arch)
+    ctx = ParallelContext(mesh=make_host_mesh(*xl_mesh))
+    model = build_model(cfg, ctx)
+    p, b = put(ctx, params[xl_arch], batches[xl_arch])
+    out["xfwd"] = np.asarray(jax.jit(lambda p, b: fwd(cfg, ctx, p, b))(p, b))
+    for k, v in flat(jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(p, b)).items():
+        out[f"xgrad/{k}"] = v
     np.savez(out_dir / "reference.npz", **out)
 """)
 
@@ -193,6 +208,7 @@ PORT = textwrap.dedent("""
         init_opt_state_q8
     in_dir, out_path = Path(sys.argv[4]), sys.argv[5]
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[6:10])
+    xl_arch, xl_mesh = sys.argv[10], json.loads(sys.argv[11])
     MICROBATCHES = 2
 
     def cfg_of(arch):
@@ -265,6 +281,22 @@ PORT = textwrap.dedent("""
                     out[f"step/{tag}/{n}"] = p.detach().full_tensor().numpy()
                 out[f"loss/{tag}"] = metrics["loss"].numpy()
                 out[f"gnorm/{tag}"] = metrics["grad_norm"].numpy()
+    ctx = ParallelContext(mesh=make_mesh(xl_mesh, ("data", "model")))
+    cfg, model, params, batch = sharded(xl_arch, ctx)
+    with torch.no_grad():
+        out["xfwd/sharded"] = fwd(cfg, ctx, params, batch).full_tensor().numpy()
+    names, leaves = zip(*params.named_parameters())
+    grads = spmd(lambda: torch.autograd.grad(model.loss(params, batch)[0], leaves))()
+    for n, g in zip(names, grads):
+        out[f"xgrad/sharded/{n}"] = g.full_tensor().numpy()
+    tree, batch = load(xl_arch)
+    model = build_model(cfg, None, device="cpu")
+    params = params_from_numpy(cfg, tree, "cpu")
+    with torch.no_grad():
+        out["xfwd/replicated"] = fwd(cfg, None, params, batch).numpy()
+    names, leaves = zip(*params.named_parameters())
+    for n, g in zip(names, torch.autograd.grad(model.loss(params, batch)[0], leaves)):
+        out[f"xgrad/replicated/{n}"] = g.numpy()
     np.savez(out_path, **out)
     dist.destroy_process_group()
 """)
@@ -281,7 +313,8 @@ def runs(tmp_path_factory):
     starts once the reference has written the initial states."""
     tmp = tmp_path_factory.mktemp("dtensor")
     args = [json.dumps(ARCHS), json.dumps(TRAIN), json.dumps(TRAIN_MESHES), json.dumps(OPT)]
-    ref = subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp), *args, str(B), str(S)],
+    xl = [XLSTM, json.dumps(XLSTM_MESH)]
+    ref = subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp), *args, str(B), str(S), *xl],
                            env=_env(JAX_PLATFORMS="cpu",
                                     XLA_FLAGS="--xla_force_host_platform_device_count=4"),
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -293,7 +326,7 @@ def runs(tmp_path_factory):
     world = 4
     outs = [tmp / f"rank{r}.npz" for r in range(world)]
     procs = [subprocess.Popen([sys.executable, "-c", PORT, str(r), str(world),
-                               str(tmp / "store"), str(tmp), str(outs[r]), *args],
+                               str(tmp / "store"), str(tmp), str(outs[r]), *args, *xl],
                               env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(world)]
     logs = [p.communicate(timeout=600)[0].decode() for p in procs]
@@ -426,6 +459,29 @@ def test_microbatched_sharded_step_matches_reference(runs):
         for name, w in want.items():
             _close(out[f"step/{tag}/{name}"] - init[name], w - init[name], STEP_TOL,
                    f"{tag} {name} rank {r}")
+
+
+def test_xlstm_on_a_model_axis_that_does_not_divide_its_heads(runs):
+    """The xLSTM smoke config's 2 heads on a model axis of 4: on every
+    rank the sharded logits and every parameter's gradient equal the
+    port's replicated run's (FWD_TOL / GRAD_TOL: DTensor sums the
+    contractions in its own order) and the reference's jitted forward and
+    jax.grad at the same mesh."""
+    ref, ranks, _ = runs
+    cfg = _cfg(XLSTM)
+    assert cfg.num_heads % XLSTM_MESH[1]          # the axis does not divide the heads
+    want = _port_names(cfg, ref, "xgrad/")
+    for r, out in enumerate(ranks):
+        got, plain = out["xfwd/sharded"], out["xfwd/replicated"]
+        assert got.shape == ref["xfwd"].shape and np.isfinite(got).all()
+        _close(got, plain, FWD_TOL, f"xlstm logits vs replicated, rank {r}")
+        _close(got, ref["xfwd"], FWD_TOL, f"xlstm logits vs reference, rank {r}")
+        assert {k[len("xgrad/sharded/"):] for k in out if k.startswith("xgrad/sharded/")} \
+            == want.keys()
+        for name, w in want.items():
+            g = out[f"xgrad/sharded/{name}"]
+            _close(g, out[f"xgrad/replicated/{name}"], GRAD_TOL, f"{name} vs replicated, rank {r}")
+            _close(g, w, GRAD_TOL, f"{name} vs jax.grad, rank {r}")
 
 
 def test_one_rank_sharded_run_is_the_plain_model():

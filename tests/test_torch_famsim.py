@@ -222,6 +222,30 @@ def test_padded_sweep_over_block_sizes():
                    device="cpu")
 
 
+def test_build_sweep_matches_reference():
+    """``build_sweep`` against the reference's jitted batched runner, over
+    three block sizes in one padded allocation: metrics as ``sweep``'s; one
+    entry a static shape, one runner a trace shape, reused by a second
+    call (bit for bit the first's)."""
+    blocks = (64, 256, 1024)
+    addrs, gaps = system_traces(WL, 300, 2)
+    A, G = np.stack([addrs] * 3), np.stack([gaps] * 3)
+    jcfg = JFamConfig(dram_cache_bytes=1 << 20, block_bytes=64)
+    jp = j_stack_params([JFamParams.of(j_fam_replace(jcfg, block_bytes=b))
+                         for b in blocks])
+    jout = jfam.build_sweep(jcfg, N)(jp, A, G)
+    tcfg = FamConfig(dram_cache_bytes=1 << 20, block_bytes=64)
+    tp = stack_params([FamParams.of(fam_replace(tcfg, block_bytes=b), device="cpu")
+                       for b in blocks])
+    run = tfam.build_sweep(tcfg, N)
+    assert tfam.build_sweep(FamConfig(dram_cache_bytes=1 << 20, block_bytes=64), N) is run
+    tout = run(tp, torch.from_numpy(A), torch.from_numpy(G))
+    _assert_metrics(jout, {k: v.numpy() for k, v in tout.items()})
+    again = run(tp, torch.from_numpy(A), torch.from_numpy(G))
+    for k in tout:
+        assert torch.equal(tout[k], again[k]), k
+
+
 def test_masked_runner_equals_unpadded_runs():
     """Padded tail events are exact no-ops: a system simulated for t_true
     of T_pad events equals an unpadded run of t_true events."""
