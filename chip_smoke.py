@@ -49,12 +49,12 @@ code != 0):
    present), SM cycles an id, the plain loop's ms a call and the byte
    bounds;
 4. ``flash_attention`` vs its plain version on the card, both kernels
-   (the tensor-core kernel for bf16 at D 64 / 128, the CUDA-core kernel
-   for the rest): the shapes of ``tests/test_kernels.py`` and lengths that
-   end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 80, 128, 256; Sq !=
-   Sk at D 64 and 80),
-   f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64 and 128
-   over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
+   (the tensor-core kernel for bf16 at D 64 / 80 / 128, the CUDA-core
+   kernel for the rest): the shapes of ``tests/test_kernels.py`` and
+   lengths that end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 80, 128,
+   256; Sq != Sk at D 64 and 80),
+   f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64, 80 and
+   128 over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
    within 2e-2; each case launches the variant its type and D name; the
    serving prefill's shape (B 4, Hq 32, Hkv 8, D 64, S 4,000, bf16,
    causal) within FLASH_PATH_TOL; device time per launch there (and of
@@ -62,7 +62,7 @@ code != 0):
    the bound (bf16 tensor-core rate) and
    ``scaled_dot_product_attention``'s time; then every shape the family
    serving phases' prefills give the kernel (zamba2-2.7b's D 80 on the
-   CUDA-core kernel; whisper-base's encoder, decoder self-attention and
+   tensor-core kernel; whisper-base's encoder, decoder self-attention and
    cross-attention; qwen2-vl-72b's GQA at D 128) within FLASH_PATH_TOL,
    each timed the same way;
 5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
@@ -105,7 +105,7 @@ code != 0):
    (FAMILY_SERVING; f32 params, bf16 compute, random weights from a seed),
    one phase each: ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
    one shared attention block after every 6, D 80; 2 x 2,048 prompt
-   tokens + 8 new; 9 CUDA-core ``flash_attention`` launches a prefill),
+   tokens + 8 new; 9 tensor-core ``flash_attention`` launches a prefill),
    ``ssm_serving`` (xlstm-350m at its published widths, its 12 mLSTM +
    sLSTM pairs cut to 4 for time; 2 x 1,024 + 8; no kernel), ``audio_serving`` (whisper-base: 6 + 6 layers over 1,500
    frames of a seeded generator; 8 x 128 + 32; 18 tensor-core launches:
@@ -397,7 +397,7 @@ FLASH_UNEQUAL_DIMS = (64, 80)
 # the tensor-core kernel's own cases: bf16 at its head dims, lengths that end
 # mid-tile and Sq != Sk, every group size of the dense configs and more
 # (G 6 fills no power-of-two tile), on strided views of a fused q/k/v tensor
-FLASH_TC_DIMS = (64, 128)
+FLASH_TC_DIMS = (64, 80, 128)
 FLASH_TC_LENGTHS = ((1, 1), (1000, 1000), (4000, 4000), (1000, 3000), (3000, 1000))
 FLASH_TC_GROUPS = (1, 4, 6, 8, 32)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -424,7 +424,7 @@ MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
 # 8 (4 pairs) for time (its token loops took 29.9-45.7 s of the run)
 FAMILY_SERVING = {
     "hybrid_serving": dict(arch="zamba2-2.7b", batch=2, prompt=2048, new=8, flash=9,
-                           variant="cuda_core"),
+                           variant="tensor_core"),
     "ssm_serving": dict(arch="xlstm-350m", batch=2, prompt=1024, new=8, flash=0,
                         variant=None, layers=8),
     "audio_serving": dict(arch="whisper-base", batch=8, prompt=128, new=32, flash=18,

@@ -5,7 +5,7 @@
 // exactly 0; float32 (m, l, acc) per row; out = acc / max(l, 1e-20) in
 // q's type. Two kernels, picked by type and head dim alone (the wrapper,
 // repro_torch/kernels/flash_attention/kernel.py, names the variant):
-//   - bfloat16 with D 64 or 128: flash_attention_wgmma_kernel, on the
+//   - bfloat16 with D 64, 80 or 128: flash_attention_wgmma_kernel, on the
 //     tensor cores (wgmma), fed by TMA from a producer warpgroup;
 //   - float32, and bfloat16 with any other D (8..256): flash_attention_kernel,
 //     on the CUDA cores in float32 (the float32 tolerance of 2e-5 needs
@@ -34,20 +34,40 @@
 // block's last query position: tiles above the diagonal are never read.
 // Query rows past Sq * G are computed on zeros and never written.
 //
-// Tensor-core design (bf16, D 64 / 128). A CTA of 384 threads takes 128
-// rows: warpgroup 0 is the producer, warpgroups 1 and 2 the consumers of
-// 64 rows each (wgmma's M). setmaxnreg moves registers from the producer
-// (24) to the consumers (240).
+// Tensor-core design (bf16, D 64 / 80 / 128). A CTA of 384 threads takes
+// 128 rows: warpgroup 0 is the producer, warpgroups 1 and 2 the consumers
+// of 64 rows each (wgmma's M). setmaxnreg moves registers from the
+// producer (24) to the consumers (240).
+//   - Tiles: a Q, K or V tile is 128 rows in column blocks of 128 rows
+//     each. At D 64 / 128 a block is 64 columns, rows of 128 bytes in the
+//     128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8); the
+//     pattern repeats every 8 rows, 1,024 bytes): 1 or 2 blocks, 16 / 32
+//     KB a tile. D 80's rows are 160 bytes, which fit neither swizzle, so
+//     there a block is 16 columns, rows of 32 bytes in the 32-byte swizzle
+//     (chunk c of row r at chunk c ^ ((r / 4) % 2); 8 rows, 256 bytes): 5
+//     blocks, 20 KB a tile. Both are CUTLASS's Layout_K_SW128 / SW32
+//     atoms and TMA's SWIZZLE_128B / 32B: the hardware XORs address bits
+//     7.. into bits 4.., so every block starts on a whole 8-row atom.
+//     (A 64-column block plus a 16-column one at D 80 took 6 % longer on
+//     an H100 at zamba2-2.7b's prefill: two P V wgmmas a term, not one.)
 //   - Q: each consumer loads its 64 rows once with 16-byte loads into
-//     shared memory in the 128-byte-swizzled K-major layout wgmma reads
-//     (D 128: two 64-column blocks). TMA could load Q only when G divides
+//     shared memory in that layout. TMA could load Q only when G divides
 //     64; these loads take any G.
-//   - K, V: one producer thread brings 128-key tiles by TMA into a
-//     ring (3 stages at D 64, 2 at D 128; 16 / 32 KB per tile) with full
-//     (K and V apart) and empty mbarriers. The maps are 4-D (D, Hkv, Sk,
-//     B) with the views' own byte strides, 64-column boxes, 128-byte
-//     swizzle: keys past Sk of the sequence are zero-filled by TMA, never
-//     read from the next sequence.
+//   - K, V: one producer thread brings 128-key tiles by TMA into a ring (3
+//     stages at D 64, 2 at D 80 and 128) with full (K and V apart) and
+//     empty mbarriers. At D 80 on an H100 (zamba2-2.7b's prefill, one CTA
+//     an SM) 2 stages took 0.5 % less time than 3 and 5 % less than 4.
+//     The maps are 4-D (D, Hkv, Sk, B) with the views' own byte strides
+//     and a block's box (64 or 16 columns x 128 keys) in its swizzle: keys
+//     past Sk of the sequence are zero-filled by TMA, never read from the
+//     next sequence.
+//   - Descriptors (wgmma's shared-memory matrix descriptors, as CUTLASS's
+//     make_gmma_desc builds them): layout type 1 (128-byte swizzle) or 3
+//     (32-byte), base offset 0. K-major (Q and K in S = Q K^T): SBO the
+//     8-row step (one atom), LBO unused; a 16-column step moves the start
+//     by 32 bytes inside a 128-byte row, or to the next 16-column block.
+//     MN-major (V in P V, the transpose bit): SBO the 8-key step (one
+//     atom), LBO the step to the next column block.
 //   - S = Q K^T: wgmma m64n128k16, bf16 x bf16 -> f32, both operands from
 //     shared memory (K-major), D / 16 steps.
 //   - Online softmax in registers: each row's values sit in the 4 lanes
@@ -60,8 +80,9 @@
 //     registers, hi = bf16(p) and lo = bf16(p - hi), each the A operand
 //     of one wgmma (the f32 accumulator fragment of S maps onto wgmma's A
 //     fragment pair by pair, no shuffles); V is the B operand from shared
-//     memory, MN-major (the transpose bit). Each consumer warp releases
-//     the stage through the empty barrier after its P.V is complete.
+//     memory, MN-major (the transpose bit): one m64nDk16 over all D
+//     columns a term (n64, n80, n128). Each consumer warp releases the
+//     stage through the empty barrier after its P.V is complete.
 //   - Scheduling: a 1-D grid with (kv head, batch) fastest; under causal
 //     the row tiles run in reverse, so the CTAs with the most key tiles
 //     start first.
@@ -397,26 +418,32 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
 
 
 // --------------------------------------------------------------------------
-// Tensor-core kernel (bf16, D 64 / 128)
+// Tensor-core kernel (bf16, D 64 / 80 / 128)
 // --------------------------------------------------------------------------
 
 constexpr int kTcRows = 128;          // rows of a CTA: two consumer warpgroups of 64
 constexpr int kTcKeys = 128;          // keys of a tile
 constexpr int kTcStages64 = 3;        // K/V ring stages at D 64
+constexpr int kTcStages80 = 2;        // K/V ring stages at D 80 (picked on an H100: header)
 constexpr int kTcStages128 = 2;       // K/V ring stages at D 128
 constexpr int kTcThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kTcProducerRegs = 24;
 constexpr int kTcConsumerRegs = 240;
-constexpr uint32_t kSw128Rows = 128;  // bytes of a swizzled row: 64 bf16 columns
 
 // Shared memory, in bytes from a 1024-aligned base: Q (128 rows), the K
-// ring and the V ring (128 keys a tile), each in 64-column blocks of 128
-// rows x 128 bytes, 128-byte swizzled; then the barriers.
+// ring and the V ring (128 keys a tile), each in column blocks of 128
+// rows; then the barriers. A block is 64 columns (rows of 128 bytes,
+// 128-byte swizzle) at D 64 / 128, 16 columns (rows of 32 bytes, 32-byte
+// swizzle) at D 80, whose 160-byte rows fit neither swizzle.
 template <int D>
 struct TcLayout {
-  static constexpr int kStages = D == 64 ? kTcStages64 : kTcStages128;
-  static constexpr int kBlocks = D / 64;
-  static constexpr uint32_t kBlock = kTcKeys * kSw128Rows;   // one 64-column block
+  static constexpr int kStages = D == 64 ? kTcStages64 : D == 80 ? kTcStages80 : kTcStages128;
+  static constexpr int kCols = D % 64 == 0 ? 64 : 16;        // columns of a block
+  static constexpr int kBlocks = D / kCols;
+  static constexpr uint32_t kRowBytes = 2 * kCols;           // a block's row: the swizzle's span
+  static constexpr uint32_t kAtom = 8 * kRowBytes;           // the swizzle repeats every 8 rows
+  static constexpr uint64_t kDescType = kCols == 64 ? 1 : 3; // wgmma layout: 128- / 32-byte swizzle
+  static constexpr uint32_t kBlock = kTcKeys * kRowBytes;    // one column block
   static constexpr uint32_t kTile = kBlocks * kBlock;        // a Q, K or V tile
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kTile;
@@ -424,6 +451,7 @@ struct TcLayout {
   static constexpr uint32_t kBar = kV + kStages * kTile;     // full_k, full_v, empty
   static constexpr uint32_t kBytes = kBar + 3 * kStages * 8 + 1024;   // + alignment slack
   static_assert(kTcRows == kTcKeys, "Q and K/V tiles share the block size");
+  static_assert(D % kCols == 0 && kTile % 1024 == 0, "tiles of whole blocks on 1024-byte bounds");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -468,13 +496,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (all in 16-byte units), layout
-// type 1 (128-byte swizzle) in bits 62-63; base offset 0 (1024-aligned atoms).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of a swizzled operand: start address,
+// leading and stride byte offsets (all in 16-byte units), the layout type
+// (1: 128-byte swizzle, 3: 32-byte) in bits 62-63; base offset 0 (every
+// block starts on a whole swizzle atom).
+template <uint64_t kType>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (kType << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -549,6 +579,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80, f32) += A . B, A bf16 from registers (4 x bf16x2 a thread),
+// B bf16 from shared memory, MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += A . B, A bf16 from registers (4 x bf16x2 a thread),
 // B bf16 from shared memory, MN-major (the transpose bit set)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -578,6 +628,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 64) {
     wgmma_m64n64k16_rs(o, a, db);
+  } else if constexpr (D == 80) {
+    wgmma_m64n80k16_rs(o, a, db);
   } else {
     wgmma_m64n128k16_rs(o, a, db);
   }
@@ -633,12 +685,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
         for (int blk = 0; blk < L::kBlocks; ++blk)
           tma_load_4d(base + L::kK + s * L::kTile + blk * L::kBlock, &tm_k, full_k + 8 * s,
-                      64 * blk, h, n * kTcKeys, b);
+                      L::kCols * blk, h, n * kTcKeys, b);
         mbar_expect_tx(full_v + 8 * s, L::kTile);
 #pragma unroll
         for (int blk = 0; blk < L::kBlocks; ++blk)
           tma_load_4d(base + L::kV + s * L::kTile + blk * L::kBlock, &tm_v, full_v + 8 * s,
-                      64 * blk, h, n * kTcKeys, b);
+                      L::kCols * blk, h, n * kTcKeys, b);
       }
     }
   } else {
@@ -647,9 +699,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int c = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
 
-    // Q rows into shared memory, 128-byte swizzled: 16-byte chunk ch of
-    // row r of a 64-column block goes to chunk ch ^ (r % 8) of that row
-    constexpr int kChunks = D / 8;
+    // Q rows into shared memory in the layout TMA gives K and V: 16-byte
+    // chunk c of row r of a block goes to chunk c ^ (r % 8) of that row in
+    // the 128-byte swizzle, c ^ ((r / 4) % 2) in the 32-byte one (the
+    // address bits 7.. XORed into bits 4..)
+    constexpr int kChunks = D / 8, kRowChunks = L::kCols / 8;
     for (int i = tid; i < 64 * kChunks; i += 128) {
       const int rl = 64 * c + i / kChunks, ch = i % kChunks;
       const int row = r0 + rl;
@@ -658,8 +712,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int qp = row / G, g = row % G;
         val = *reinterpret_cast<const uint4*>(q + b * qs0 + qp * qs1 + (h * G + g) * qs2 + ch * 8);
       }
-      const uint32_t dst = base + L::kQ + (ch / 8) * L::kBlock + rl * kSw128Rows +
-                           (((ch % 8) ^ (rl % 8)) * 16);
+      const uint32_t dst =
+          base + L::kQ + (ch / kRowChunks) * L::kBlock + rl * L::kRowBytes +
+          (((ch % kRowChunks) ^ ((rl * L::kRowBytes / 128) % kRowChunks)) * 16);
       asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(dst), "r"(val.x), "r"(val.y),
                    "r"(val.z), "r"(val.w)
                    : "memory");
@@ -673,7 +728,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int qpos0 = (r0 + rl0) / G, qpos1 = (r0 + rl0 + 8) / G;
     const int qpos_first = (r0 + 64 * c) / G;
     const int col0 = 2 * (lane % 4);
-    const uint32_t q_addr = base + L::kQ + 64 * c * kSw128Rows;
+    const uint32_t q_addr = base + L::kQ + 64 * c * L::kRowBytes;
 
     float o[D / 2];
 #pragma unroll
@@ -685,15 +740,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const uint32_t phase = (n / S) & 1;
       const uint32_t k_addr = base + L::kK + s * L::kTile, v_addr = base + L::kV + s * L::kTile;
 
-      // S = Q K^T over D / 16 steps of 16 columns
+      // S = Q K^T over D / 16 steps of 16 columns (32 bytes of a block's
+      // row); Q and K K-major: 8-row groups an atom apart, LBO unused
       float sc[64];
       mbar_wait(full_k + 8 * s, phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * L::kBlock + (kk % 4) * 32;
-        wgmma_m64n128k16_ss(sc, sw128_desc(q_addr + off, 16, 1024),
-                            sw128_desc(k_addr + off, 16, 1024), kk > 0);
+        constexpr int kSteps = L::kCols / 16;
+        const uint32_t off = (kk / kSteps) * L::kBlock + (kk % kSteps) * 32;
+        wgmma_m64n128k16_ss(sc, smem_desc<L::kDescType>(q_addr + off, 16, L::kAtom),
+                            smem_desc<L::kDescType>(k_addr + off, 16, L::kAtom), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -759,14 +816,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         for (int i = 0; i < 4; ++i)
           split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], p_hi[kk][i], p_lo[kk][i]);
 
-      // O += P_hi V + P_lo V over 8 steps of 16 keys; V is MN-major: 8-key
-      // groups 1024 bytes apart, 64-column blocks L::kBlock apart
+      // O += P_hi V + P_lo V over 8 steps of 16 keys, one wgmma of all D
+      // columns a term; V is MN-major: 8-key groups an atom apart (SBO),
+      // column blocks L::kBlock apart (LBO)
       mbar_wait(full_v + 8 * s, phase);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = sw128_desc(v_addr + kk * 16 * kSw128Rows, L::kBlock, 1024);
+        const uint64_t dv =
+            smem_desc<L::kDescType>(v_addr + kk * 16 * L::kRowBytes, L::kBlock, L::kAtom);
         wgmma_pv<D>(o, p_hi[kk], dv);
         wgmma_pv<D>(o, p_lo[kk], dv);
       }
@@ -823,21 +882,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (D, Hkv, Sk, B) map of a K or V view, strides in elements; boxes of 64
-// columns x 128 keys, 128-byte swizzle, out-of-range keys zero-filled.
+// (D, Hkv, Sk, B) map of a K or V view, strides in elements; boxes of
+// `cols` columns x 128 keys, out-of-range keys zero-filled; 64 columns in
+// the 128-byte swizzle, 16 in the 32-byte one (the box's row is the span).
 int encode_kv(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int Sk, int Hkv, int D,
-              long long s0, long long s1, long long s2) {
+              long long s0, long long s1, long long s2, int cols) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Hkv),
                               static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(s2) * 2, static_cast<cuuint64_t>(s1) * 2,
                            static_cast<cuuint64_t>(s0) * 2};
   for (int i = 0; i < 3; ++i)   // a dimension of size 1 is never stepped: any valid stride
     if (dims[i + 1] == 1) strides[i] = static_cast<cuuint64_t>(D) * 2;
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(kTcKeys), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(kTcKeys), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -852,8 +913,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (Sk > 0) {   // with no keys the kernel reads no tile
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    int err = encode_kv(enc, &tm_k, k, B, Sk, Hkv, D, st[3], st[4], st[5]);
-    if (err == 0) err = encode_kv(enc, &tm_v, v, B, Sk, Hkv, D, st[6], st[7], st[8]);
+    int err = encode_kv(enc, &tm_k, k, B, Sk, Hkv, D, st[3], st[4], st[5], L::kCols);
+    if (err == 0) err = encode_kv(enc, &tm_v, v, B, Sk, Hkv, D, st[6], st[7], st[8], L::kCols);
     if (err != 0) return err;
   }
   const auto kernel = flash_attention_wgmma_kernel<D>;
@@ -894,7 +955,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: q, k, v and out bfloat16, D 64 or 128; the
+// The tensor-core kernel: q, k, v and out bfloat16, D 64, 80 or 128; the
 // rest as flash_attention above.
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out,
                                      int B, int Sq, int Sk, int Hkv, int G, int D,
@@ -908,6 +969,7 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v
   const long long st[9] = {qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2};
   const auto s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
+  if (D == 80) return launch_wgmma<80>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
   if (D == 128) return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
