@@ -10,8 +10,9 @@ code != 0):
 1. the card's name and power limit; build the six CUDA sources from
    ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, all at once,
    sm_90a); HGMMA (wgmma) in the SASS of the tensor-core attention kernel
-   at both its head dims and UTMALDG (TMA loads) in every instantiation of
-   the paged attention kernel (cuobjdump);
+   at each of its head dims (64, 80, 128, 256), its registers there and no
+   spills (ptxas -v) and UTMALDG (TMA loads) in every instantiation of the
+   paged attention kernel (cuobjdump);
 2. ``fused_cache_step`` vs its plain version on the card: random op streams
    over padded geometries (effective sets/ways below the padding, ways
    above 32 too), streams whose fills, demand and probes all fall into 1
@@ -49,22 +50,22 @@ code != 0):
    present), SM cycles an id, the plain loop's ms a call and the byte
    bounds;
 4. ``flash_attention`` vs its plain version on the card, both kernels
-   (the tensor-core kernel for bf16 at D 64 / 80 / 128, the CUDA-core
+   (the tensor-core kernel for bf16 at D 64 / 80 / 128 / 256, the CUDA-core
    kernel for the rest): the shapes of ``tests/test_kernels.py`` and
    lengths that end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 80, 128,
    256; Sq != Sk at D 64 and 80),
-   f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64, 80 and
-   128 over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
+   f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64, 80, 128
+   and 256 over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
    within 2e-2; each case launches the variant its type and D name; the
    serving prefill's shape (B 4, Hq 32, Hkv 8, D 64, S 4,000, bf16,
    causal) within FLASH_PATH_TOL; device time per launch there (and of
    the CUDA-core kernel in f32 at that shape), the plain version's time,
    the bound (bf16 tensor-core rate) and
    ``scaled_dot_product_attention``'s time; then every shape the family
-   serving phases' prefills give the kernel (zamba2-2.7b's D 80 on the
-   tensor-core kernel; whisper-base's encoder, decoder self-attention and
-   cross-attention; qwen2-vl-72b's GQA at D 128) within FLASH_PATH_TOL,
-   each timed the same way;
+   serving phases' prefills give the kernel (gemma-2b's MQA at D 256 and
+   zamba2-2.7b's D 80 on the tensor-core kernel; whisper-base's encoder,
+   decoder self-attention and cross-attention; qwen2-vl-72b's GQA at D
+   128) within FLASH_PATH_TOL, each timed the same way;
 5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
@@ -101,9 +102,12 @@ code != 0):
    prefill's logits and K/V cache and every decode step's logits within
    SERVE_TOL, the (token, layer) top-8 routing choices that differ between
    the two printed; prefill tokens/s and wall per decode step;
-7c-7f. serving the other four families at their published widths
-   (FAMILY_SERVING; f32 params, bf16 compute, random weights from a seed),
-   one phase each: ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
+7c-7f. serving gemma-2b and the other four families at their published
+   widths (FAMILY_SERVING; f32 params, bf16 compute, random weights from a
+   seed), one phase each: ``gemma_serving`` (gemma-2b: 18 layers, d_model
+   2,048, Hq 8, Hkv 1, D 256, GeGLU 16,384, vocab 256,000, tied and scaled
+   embeddings; 4 x 4,000 + 16, phase serving's shape; 18 tensor-core
+   ``flash_attention`` launches a prefill), ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
    one shared attention block after every 6, D 80; 2 x 2,048 prompt
    tokens + 8 new; 9 tensor-core ``flash_attention`` launches a prefill),
    ``ssm_serving`` (xlstm-350m at its published widths, its 12 mLSTM +
@@ -387,17 +391,19 @@ MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K = 24, 32, 8
 MOE_SLAB = 3 * 1024 * 512      # w_gate + w_up + w_down of one expert, bf16
 MOE_FAST, MOE_TOKENS = 192, 4
 # flash_attention vs plain: the shapes of tests/test_kernels.py:25-30 at its
-# tolerances (:41), lengths that end mid-tile and every head dim of the
-# dense configs; the path's shape comes from the serving configuration
+# tolerances (:41), lengths that end mid-tile, every head dim of the dense
+# configs, and 96 and 192, which keep bf16 on the CUDA-core kernel's
+# D 65-128 and D 129-256 instances; the path's shape comes from the
+# serving configuration
 FLASH_SHAPES = ((2, 64, 4, 2, 32), (1, 128, 8, 1, 16), (2, 64, 4, 4, 64), (1, 256, 2, 2, 8))
 FLASH_LENGTHS = (1, 1000, 4000)
 FLASH_UNEQUAL = ((1000, 3000), (3000, 1000))
-FLASH_DIMS = (64, 80, 128, 256)     # 80: zamba2-2.7b's shared attention
+FLASH_DIMS = (64, 80, 96, 128, 192, 256)     # 80: zamba2-2.7b's shared attention
 FLASH_UNEQUAL_DIMS = (64, 80)
 # the tensor-core kernel's own cases: bf16 at its head dims, lengths that end
 # mid-tile and Sq != Sk, every group size of the dense configs and more
 # (G 6 fills no power-of-two tile), on strided views of a fused q/k/v tensor
-FLASH_TC_DIMS = (64, 80, 128)
+FLASH_TC_DIMS = (64, 80, 128, 256)
 FLASH_TC_LENGTHS = ((1, 1), (1000, 1000), (4000, 4000), (1000, 3000), (3000, 1000))
 FLASH_TC_GROUPS = (1, 4, 6, 8, 32)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -416,13 +422,17 @@ SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|
 # MoE serving at granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py)
 MOE_SERVE_ARCH = "granite-moe-1b-a400m"
 MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
-# serving the hybrid, ssm, audio and vlm families (phases 7c-7f) at their
-# published widths (src/repro/configs/zamba2_2_7b.py, xlstm_350m.py,
-# whisper_base.py, qwen2_vl_72b.py): the batch, prompt and new tokens, the
+# serving gemma-2b and the hybrid, ssm, audio and vlm families (phases
+# 7c-7f) at their published widths (src/repro/configs/gemma_2b.py,
+# zamba2_2_7b.py, xlstm_350m.py, whisper_base.py, qwen2_vl_72b.py; gemma-2b
+# at phase serving's batch and prompt, ~10 GB of f32 params, nothing cut):
+# the batch, prompt and new tokens, the
 # flash_attention launches a prefill and their variant; qwen2-vl-72b's 80
 # layers cut to 8 to fit one card; xlstm-350m's 24 layers (12 pairs) cut to
 # 8 (4 pairs) for time (its token loops took 29.9-45.7 s of the run)
 FAMILY_SERVING = {
+    "gemma_serving": dict(arch="gemma-2b", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                          new=SERVE_NEW, flash=18, variant="tensor_core"),
     "hybrid_serving": dict(arch="zamba2-2.7b", batch=2, prompt=2048, new=8, flash=9,
                            variant="tensor_core"),
     "ssm_serving": dict(arch="xlstm-350m", batch=2, prompt=1024, new=8, flash=0,
@@ -912,6 +922,34 @@ def tensor_core_sass():
              for fn, n in counts.items()}
     check(set(found) == {str(d) for d in TC_DIMS} and all(found.values()),
           f"HGMMA in the tensor-core kernel's instantiations: {found}")
+    return found
+
+
+def tensor_core_registers(built):
+    """{D: (registers, spill store bytes, spill load bytes)} of each
+    instantiation of the tensor-core attention kernel, from the ptxas -v
+    lines of flash_attention.cu's log in ``built`` (build_all's (library,
+    log) pairs; a library built before this run gives the log kept beside
+    it); every head dim of TC_DIMS must be there and none may spill."""
+    import re
+    from repro_torch.kernels.flash_attention.kernel import TC_DIMS
+    from repro_torch.kernels.nvcc import library_path
+    log = dict(built)[library_path(ROOT / KERNELS["flash_attention"][0])]
+    found, d = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            d = (int(line.split("flash_attention_wgmma_kernelILi")[1].split("E")[0])
+                 if "flash_attention_wgmma_kernelILi" in line else None)
+        elif d is not None and "spill stores" in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            found[d] = [None, int(spills.group(1)), int(spills.group(2))]
+        elif d is not None and "registers" in line:
+            found[d][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+            d = None
+    found = {k: tuple(v) for k, v in found.items()}
+    check(set(found) == set(TC_DIMS) and not any(st or ld for _, st, ld in found.values()),
+          f"registers and spills of the tensor-core kernel's instantiations (ptxas -v): "
+          f"{found}{'' if log else ' (no log: remove the build/ beside the source and rerun)'}")
     return found
 
 
@@ -1501,7 +1539,7 @@ def flash_vs_plain(torch):
               for d in FLASH_UNEQUAL_DIMS for dtype in (torch.float32, torch.bfloat16)]
     tc_cases = [(1, sq, sk, g * (1 if g == 32 else 2), 1 if g == 32 else 2, d, torch.bfloat16)
                 for d in FLASH_TC_DIMS for sq, sk in FLASH_TC_LENGTHS for g in FLASH_TC_GROUPS]
-    errs, n = {}, {}
+    errs, n, instances = {}, {}, {}
     for i, (b, sq, sk, hq, hkv, d, dtype) in enumerate(cases + tc_cases):
         name = str(dtype).split(".")[1]
         tol = FLASH_TOL[name]
@@ -1527,6 +1565,8 @@ def flash_vs_plain(torch):
             key = f"{which} {name}"
             errs[key] = max(errs.get(key, 0.0), err)
             n[key] = n.get(key, 0) + 1
+            if which == "cuda_core":     # its instances: D <= 64, 65-128, 129-256
+                instances.setdefault(name, set()).add((d > 64) + (d > 128))
     B, S, Hq, Hkv, D = _serving_attention_shape()
     q, k, v = (rnd((B, S, h, D), torch.bfloat16) for h in (Hq, Hkv, Hkv))
     check(variant(q.dtype, D) == "tensor_core", "the serving prefill runs the tensor-core kernel")
@@ -1567,6 +1607,8 @@ def flash_vs_plain(torch):
     d128_lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
         qt2, kt2, vt2, is_causal=True, enable_gqa=True), 20)
     del q2, k2, v2, qt2, kt2, vt2
+    check(all(instances.get(name) == {0, 1, 2} for name in ("float32", "bfloat16")),
+          f"each type runs every CUDA-core instance: {instances}")
     print("flash_attention cases within tolerance, by variant and type: " +
           ", ".join(f"{key} {n[key]} (max abs err {errs[key]:.3g})" for key in sorted(n)),
           flush=True)
@@ -4776,11 +4818,18 @@ def main(argv=None):
                                 "--format=csv,noheader,nounits"], capture_output=True,
                                text=True, check=True).stdout.split()[0])
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    for lib, log in phases.run("build", build_all):
+    built = phases.run("build", build_all)
+    for lib, log in built:
         print(f"built {lib.name}\n{log.strip()}", flush=True)
     hgmma = tensor_core_sass()
     print("HGMMA instructions in the SASS of flash_attention_wgmma_kernel: " +
-          ", ".join(f"D {d}: {c}" for d, c in sorted(hgmma.items())), flush=True)
+          ", ".join(f"D {d}: {c}" for d, c in sorted(hgmma.items(), key=lambda x: int(x[0]))),
+          flush=True)
+    regs = tensor_core_registers(built)
+    print("registers of flash_attention_wgmma_kernel at launch (ptxas -v; setmaxnreg then "
+          "moves them to the consumers), spill stores / loads in bytes: " +
+          ", ".join(f"D {d}: {r} registers, spills {st} / {ld}"
+                    for d, (r, st, ld) in sorted(regs.items())), flush=True)
     utmaldg = paged_tma_sass()
     print(f"UTMALDG instructions in the SASS of paged_attention_kernel: {sum(utmaldg.values())} "
           f"in {len(utmaldg)} instantiations", flush=True)

@@ -22,6 +22,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 HASH_MULT = 0x9E3779B1
 _U32 = 0xFFFFFFFF
 I32_MAX = torch.iinfo(torch.int32).max
@@ -33,7 +35,8 @@ class CacheState(NamedTuple):
     stamp: torch.Tensor    # (*B,) int32 monotonic counter
 
 
-def init_cache(num_sets: int, ways: int, batch=(), device="cpu") -> CacheState:
+def init_cache(num_sets: int, ways: int, batch=(), device="cuda") -> CacheState:
+    device = resolve_device(device)
     z = lambda *s: torch.zeros(*s, dtype=torch.int32, device=device)
     batch = tuple(batch)
     return CacheState(tags=z(batch + (num_sets, ways)),

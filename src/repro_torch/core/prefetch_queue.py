@@ -9,13 +9,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class PrefetchQueue(NamedTuple):
     block: torch.Tensor    # (*B, Q) int32 block addr (+1; 0 = empty)
     finish: torch.Tensor   # (*B, Q) float32 completion time (cycles)
 
 
-def init_queue(size: int, batch=(), device="cpu") -> PrefetchQueue:
+def init_queue(size: int, batch=(), device="cuda") -> PrefetchQueue:
+    device = resolve_device(device)
     shape = tuple(batch) + (size,)
     return PrefetchQueue(block=torch.zeros(shape, dtype=torch.int32, device=device),
                          finish=torch.zeros(shape, dtype=torch.float32, device=device))

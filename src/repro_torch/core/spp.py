@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import FamConfig
 from repro_torch.core.dram_cache import HASH_MULT, u32_hash
+from repro_torch.device import resolve_device
 
 SIG_SHIFT = 4
 PT_WAYS = 4
@@ -33,8 +34,9 @@ class SppState(NamedTuple):
     pt_sigw: torch.Tensor       # (*B, PT) int32 signature weight
 
 
-def init_spp(cfg: FamConfig, batch=(), device="cpu") -> SppState:
+def init_spp(cfg: FamConfig, batch=(), device="cuda") -> SppState:
     ST, PT = cfg.spp_signature_entries, cfg.spp_pattern_entries
+    device = resolve_device(device)
     b = tuple(batch)
     z = lambda *s: torch.zeros(b + s, dtype=torch.int32, device=device)
     return SppState(st_tag=z(ST), st_last=z(ST), st_sig=z(ST),

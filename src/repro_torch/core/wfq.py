@@ -21,6 +21,8 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class WfqState(NamedTuple):
     current_round: torch.Tensor      # (*B,) int32 in [0, W]
@@ -28,7 +30,8 @@ class WfqState(NamedTuple):
     prefetch_deficit: torch.Tensor   # (*B,) int32
 
 
-def init_wfq(batch=(), device="cpu") -> WfqState:
+def init_wfq(batch=(), device="cuda") -> WfqState:
+    device = resolve_device(device)
     z = lambda: torch.zeros(tuple(batch), dtype=torch.int32, device=device)
     return WfqState(z(), z(), z())
 

@@ -5,8 +5,8 @@
 // exactly 0; float32 (m, l, acc) per row; out = acc / max(l, 1e-20) in
 // q's type. Two kernels, picked by type and head dim alone (the wrapper,
 // repro_torch/kernels/flash_attention/kernel.py, names the variant):
-//   - bfloat16 with D 64, 80 or 128: flash_attention_wgmma_kernel, on the
-//     tensor cores (wgmma), fed by TMA from a producer warpgroup;
+//   - bfloat16 with D 64, 80, 128 or 256: flash_attention_wgmma_kernel, on
+//     the tensor cores (wgmma), fed by TMA from a producer warpgroup;
 //   - float32, and bfloat16 with any other D (8..256): flash_attention_kernel,
 //     on the CUDA cores in float32 (the float32 tolerance of 2e-5 needs
 //     true float32 products).
@@ -34,15 +34,15 @@
 // block's last query position: tiles above the diagonal are never read.
 // Query rows past Sq * G are computed on zeros and never written.
 //
-// Tensor-core design (bf16, D 64 / 80 / 128). A CTA of 384 threads takes
+// Tensor-core design (bf16, D 64 / 80 / 128 / 256). A CTA of 384 threads takes
 // 128 rows: warpgroup 0 is the producer, warpgroups 1 and 2 the consumers
 // of 64 rows each (wgmma's M). setmaxnreg moves registers from the
 // producer (24) to the consumers (240).
-//   - Tiles: a Q, K or V tile is 128 rows in column blocks of 128 rows
-//     each. At D 64 / 128 a block is 64 columns, rows of 128 bytes in the
-//     128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8); the
-//     pattern repeats every 8 rows, 1,024 bytes): 1 or 2 blocks, 16 / 32
-//     KB a tile. D 80's rows are 160 bytes, which fit neither swizzle, so
+//   - Tiles: a Q tile is 128 rows, a K or V tile 128 keys (64 at D 256),
+//     each in column blocks of its own rows. At D 64 / 128 / 256 a block
+//     is 64 columns, rows of 128 bytes in the 128-byte swizzle (16-byte
+//     chunk c of row r at chunk c ^ (r % 8); the pattern repeats every 8
+//     rows, 1,024 bytes): 1, 2 or 4 blocks, 16 / 32 / 32 KB a K tile. D 80's rows are 160 bytes, which fit neither swizzle, so
 //     there a block is 16 columns, rows of 32 bytes in the 32-byte swizzle
 //     (chunk c of row r at chunk c ^ ((r / 4) % 2); 8 rows, 256 bytes): 5
 //     blocks, 20 KB a tile. Both are CUTLASS's Layout_K_SW128 / SW32
@@ -53,12 +53,12 @@
 //   - Q: each consumer loads its 64 rows once with 16-byte loads into
 //     shared memory in that layout. TMA could load Q only when G divides
 //     64; these loads take any G.
-//   - K, V: one producer thread brings 128-key tiles by TMA into a ring (3
-//     stages at D 64, 2 at D 80 and 128) with full (K and V apart) and
+//   - K, V: one producer thread brings K/V tiles by TMA into a ring (3
+//     stages at D 64, 2 at D 80, 128 and 256) with full (K and V apart) and
 //     empty mbarriers. At D 80 on an H100 (zamba2-2.7b's prefill, one CTA
 //     an SM) 2 stages took 0.5 % less time than 3 and 5 % less than 4.
 //     The maps are 4-D (D, Hkv, Sk, B) with the views' own byte strides
-//     and a block's box (64 or 16 columns x 128 keys) in its swizzle: keys
+//     and a block's box (64 or 16 columns x the tile's keys) in its swizzle: keys
 //     past Sk of the sequence are zero-filled by TMA, never read from the
 //     next sequence.
 //   - Descriptors (wgmma's shared-memory matrix descriptors, as CUTLASS's
@@ -68,8 +68,8 @@
 //     by 32 bytes inside a 128-byte row, or to the next 16-column block.
 //     MN-major (V in P V, the transpose bit): SBO the 8-key step (one
 //     atom), LBO the step to the next column block.
-//   - S = Q K^T: wgmma m64n128k16, bf16 x bf16 -> f32, both operands from
-//     shared memory (K-major), D / 16 steps.
+//   - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D 256), bf16 x bf16 ->
+//     f32, both operands from shared memory (K-major), D / 16 steps.
 //   - Online softmax in registers: each row's values sit in the 4 lanes
 //     of a quad (max over 2 shuffles); ex2 with log2(e) / sqrt(D) folded
 //     into one FMA; l kept per thread and reduced once at the end.
@@ -81,8 +81,15 @@
 //     of one wgmma (the f32 accumulator fragment of S maps onto wgmma's A
 //     fragment pair by pair, no shuffles); V is the B operand from shared
 //     memory, MN-major (the transpose bit): one m64nDk16 over all D
-//     columns a term (n64, n80, n128). Each consumer warp releases the
-//     stage through the empty barrier after its P.V is complete.
+//     columns a term (n64, n80, n128, n256). Each consumer warp releases
+//     the stage through the empty barrier after its P.V is complete.
+//   - D 256 (gemma-2b's MQA): 128-key K/V tiles would be 64 KB each, so
+//     with Q's 64 KB one stage alone fills the SM; 64-key tiles take 32 KB,
+//     2 stages 192 KB with Q. A consumer thread holds O (64 x 256 f32: 128
+//     registers), S (32) and P's hi / lo fragments (32) under setmaxnreg's
+//     240, no spills. On an H100 at gemma's prefill, 80-key tiles (224 KB)
+//     took 0.8 % less time and P V as two m64n128k16 halves the same as one
+//     n256: 64 keys and one n256 kept, the simpler of the three.
 //   - Scheduling: a 1-D grid with (kv head, batch) fastest; under causal
 //     the row tiles run in reverse, so the CTAs with the most key tiles
 //     start first.
@@ -418,40 +425,49 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
 
 
 // --------------------------------------------------------------------------
-// Tensor-core kernel (bf16, D 64 / 80 / 128)
+// Tensor-core kernel (bf16, D 64 / 80 / 128 / 256)
 // --------------------------------------------------------------------------
 
 constexpr int kTcRows = 128;          // rows of a CTA: two consumer warpgroups of 64
-constexpr int kTcKeys = 128;          // keys of a tile
+constexpr int kTcKeys = 128;          // keys of a K/V tile
+constexpr int kTcKeys256 = 64;        // at D 256, where 128 keys overflow shared memory (header)
 constexpr int kTcStages64 = 3;        // K/V ring stages at D 64
 constexpr int kTcStages80 = 2;        // K/V ring stages at D 80 (picked on an H100: header)
 constexpr int kTcStages128 = 2;       // K/V ring stages at D 128
+constexpr int kTcStages256 = 2;       // K/V ring stages at D 256
 constexpr int kTcThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kTcProducerRegs = 24;
 constexpr int kTcConsumerRegs = 240;
 
 // Shared memory, in bytes from a 1024-aligned base: Q (128 rows), the K
-// ring and the V ring (128 keys a tile), each in column blocks of 128
-// rows; then the barriers. A block is 64 columns (rows of 128 bytes,
-// 128-byte swizzle) at D 64 / 128, 16 columns (rows of 32 bytes, 32-byte
-// swizzle) at D 80, whose 160-byte rows fit neither swizzle.
+// ring and the V ring (kKeys keys a tile), each in column blocks of its
+// own rows; then the barriers. A block is 64 columns (rows of 128 bytes,
+// 128-byte swizzle) at D 64 / 128 / 256, 16 columns (rows of 32 bytes,
+// 32-byte swizzle) at D 80, whose 160-byte rows fit neither swizzle.
 template <int D>
 struct TcLayout {
-  static constexpr int kStages = D == 64 ? kTcStages64 : D == 80 ? kTcStages80 : kTcStages128;
+  static constexpr int kKeys = D == 256 ? kTcKeys256 : kTcKeys;
+  static constexpr int kStages = D == 64    ? kTcStages64
+                                 : D == 80  ? kTcStages80
+                                 : D == 128 ? kTcStages128
+                                            : kTcStages256;
   static constexpr int kCols = D % 64 == 0 ? 64 : 16;        // columns of a block
   static constexpr int kBlocks = D / kCols;
   static constexpr uint32_t kRowBytes = 2 * kCols;           // a block's row: the swizzle's span
   static constexpr uint32_t kAtom = 8 * kRowBytes;           // the swizzle repeats every 8 rows
   static constexpr uint64_t kDescType = kCols == 64 ? 1 : 3; // wgmma layout: 128- / 32-byte swizzle
-  static constexpr uint32_t kBlock = kTcKeys * kRowBytes;    // one column block
-  static constexpr uint32_t kTile = kBlocks * kBlock;        // a Q, K or V tile
+  static constexpr uint32_t kQBlock = kTcRows * kRowBytes;   // one column block of Q
+  static constexpr uint32_t kKvBlock = kKeys * kRowBytes;    // one column block of K or V
+  static constexpr uint32_t kKvTile = kBlocks * kKvBlock;    // a K or V tile
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kQ + kTile;
-  static constexpr uint32_t kV = kK + kStages * kTile;
-  static constexpr uint32_t kBar = kV + kStages * kTile;     // full_k, full_v, empty
+  static constexpr uint32_t kK = kQ + kBlocks * kQBlock;
+  static constexpr uint32_t kV = kK + kStages * kKvTile;
+  static constexpr uint32_t kBar = kV + kStages * kKvTile;   // full_k, full_v, empty
   static constexpr uint32_t kBytes = kBar + 3 * kStages * 8 + 1024;   // + alignment slack
-  static_assert(kTcRows == kTcKeys, "Q and K/V tiles share the block size");
-  static_assert(D % kCols == 0 && kTile % 1024 == 0, "tiles of whole blocks on 1024-byte bounds");
+  static_assert(kKeys % 16 == 0 && kKeys <= 256, "whole wgmma K steps of P V, one TMA box");
+  static_assert(D % kCols == 0 && kQBlock % 1024 == 0 && kKvBlock % 1024 == 0,
+                "tiles of whole blocks on 1024-byte bounds");
+  static_assert(kBytes <= kMaxSharedBytes, "the tiles fit a CTA's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -536,6 +552,23 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A . B, A and B bf16 from shared memory (K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 128, f32) = (scale_d ? d : 0) + A . B, A and B bf16 from shared memory (K-major)
@@ -623,6 +656,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 256, f32) += A . B, A bf16 from registers (4 x bf16x2 a thread),
+// B bf16 from shared memory, MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// S (64 x N) = Q K^T's 16-column step kk (N keys)
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t dq, uint64_t dk, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_ss(s, dq, dk, scale_d);
+  } else {
+    wgmma_m64n128k16_ss(s, dq, dk, scale_d);
+  }
+}
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
@@ -630,8 +709,10 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
     wgmma_m64n64k16_rs(o, a, db);
   } else if constexpr (D == 80) {
     wgmma_m64n80k16_rs(o, a, db);
-  } else {
+  } else if constexpr (D == 128) {
     wgmma_m64n128k16_rs(o, a, db);
+  } else {
+    wgmma_m64n256k16_rs(o, a, db);
   }
 }
 
@@ -644,7 +725,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                                  int Hkv, int G, long long qs0, long long qs1, long long qs2,
                                  int row_tiles, int causal, float scale_log2) {
   using L = TcLayout<D>;
-  constexpr int S = L::kStages;
+  constexpr int S = L::kStages, K = L::kKeys;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -659,8 +740,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int rows = Sq * G;
   const int r0 = tile * kTcRows;
   const int last_row = min(r0 + kTcRows, rows) - 1;
-  const int all_tiles = (Sk + kTcKeys - 1) / kTcKeys;
-  const int n_tiles = causal ? min(all_tiles, last_row / G / kTcKeys + 1) : all_tiles;
+  const int all_tiles = (Sk + K - 1) / K;
+  const int n_tiles = causal ? min(all_tiles, last_row / G / K + 1) : all_tiles;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -681,16 +762,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % S;
         if (n >= S) mbar_wait(empty + 8 * s, ((n / S) - 1) & 1);
-        mbar_expect_tx(full_k + 8 * s, L::kTile);
+        mbar_expect_tx(full_k + 8 * s, L::kKvTile);
 #pragma unroll
         for (int blk = 0; blk < L::kBlocks; ++blk)
-          tma_load_4d(base + L::kK + s * L::kTile + blk * L::kBlock, &tm_k, full_k + 8 * s,
-                      L::kCols * blk, h, n * kTcKeys, b);
-        mbar_expect_tx(full_v + 8 * s, L::kTile);
+          tma_load_4d(base + L::kK + s * L::kKvTile + blk * L::kKvBlock, &tm_k, full_k + 8 * s,
+                      L::kCols * blk, h, n * K, b);
+        mbar_expect_tx(full_v + 8 * s, L::kKvTile);
 #pragma unroll
         for (int blk = 0; blk < L::kBlocks; ++blk)
-          tma_load_4d(base + L::kV + s * L::kTile + blk * L::kBlock, &tm_v, full_v + 8 * s,
-                      L::kCols * blk, h, n * kTcKeys, b);
+          tma_load_4d(base + L::kV + s * L::kKvTile + blk * L::kKvBlock, &tm_v, full_v + 8 * s,
+                      L::kCols * blk, h, n * K, b);
       }
     }
   } else {
@@ -713,7 +794,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         val = *reinterpret_cast<const uint4*>(q + b * qs0 + qp * qs1 + (h * G + g) * qs2 + ch * 8);
       }
       const uint32_t dst =
-          base + L::kQ + (ch / kRowChunks) * L::kBlock + rl * L::kRowBytes +
+          base + L::kQ + (ch / kRowChunks) * L::kQBlock + rl * L::kRowBytes +
           (((ch % kRowChunks) ^ ((rl * L::kRowBytes / 128) % kRowChunks)) * 16);
       asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(dst), "r"(val.x), "r"(val.y),
                    "r"(val.z), "r"(val.w)
@@ -738,19 +819,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int n = 0; n < n_tiles; ++n) {
       const int s = n % S;
       const uint32_t phase = (n / S) & 1;
-      const uint32_t k_addr = base + L::kK + s * L::kTile, v_addr = base + L::kV + s * L::kTile;
+      const uint32_t k_addr = base + L::kK + s * L::kKvTile, v_addr = base + L::kV + s * L::kKvTile;
 
       // S = Q K^T over D / 16 steps of 16 columns (32 bytes of a block's
       // row); Q and K K-major: 8-row groups an atom apart, LBO unused
-      float sc[64];
+      float sc[K / 2];
       mbar_wait(full_k + 8 * s, phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         constexpr int kSteps = L::kCols / 16;
-        const uint32_t off = (kk / kSteps) * L::kBlock + (kk % kSteps) * 32;
-        wgmma_m64n128k16_ss(sc, smem_desc<L::kDescType>(q_addr + off, 16, L::kAtom),
-                            smem_desc<L::kDescType>(k_addr + off, 16, L::kAtom), kk > 0);
+        const uint32_t col = (kk % kSteps) * 32;
+        wgmma_qk<K>(sc,
+                    smem_desc<L::kDescType>(q_addr + (kk / kSteps) * L::kQBlock + col, 16, L::kAtom),
+                    smem_desc<L::kDescType>(k_addr + (kk / kSteps) * L::kKvBlock + col, 16, L::kAtom),
+                    kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -758,10 +841,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
       // element 4 j + e of sc: row rl0 (e < 2) or rl0 + 8 (e >= 2),
       // key k0 + 8 j + col0 + (e & 1)
-      const int k0 = n * kTcKeys;
-      if (k0 + kTcKeys > Sk || (causal && k0 + kTcKeys - 1 > qpos_first)) {
+      const int k0 = n * K;
+      if (k0 + K > Sk || (causal && k0 + K - 1 > qpos_first)) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < K / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = k0 + 8 * j + col0 + e;
@@ -774,7 +857,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       // online softmax in the log2 domain
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < K / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
@@ -790,7 +873,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       m1 = n1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < K / 8; ++j) {
         sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -u0));
         sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -u0));
         sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -u1));
@@ -809,23 +892,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
       // P as two bf16 terms, hi + lo: keys 16 kk .. 16 kk + 15 are
       // sc[8 kk .. 8 kk + 7], which is wgmma's A fragment pair by pair
-      uint32_t p_hi[8][4], p_lo[8][4];
+      uint32_t p_hi[K / 16][4], p_lo[K / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], p_hi[kk][i], p_lo[kk][i]);
 
-      // O += P_hi V + P_lo V over 8 steps of 16 keys, one wgmma of all D
-      // columns a term; V is MN-major: 8-key groups an atom apart (SBO),
-      // column blocks L::kBlock apart (LBO)
+      // O += P_hi V + P_lo V over K / 16 steps of 16 keys, one wgmma of
+      // all D columns a term; V is MN-major: 8-key groups an atom apart
+      // (SBO), column blocks L::kKvBlock apart (LBO)
       mbar_wait(full_v + 8 * s, phase);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < K / 16; ++kk) {
         const uint64_t dv =
-            smem_desc<L::kDescType>(v_addr + kk * 16 * L::kRowBytes, L::kBlock, L::kAtom);
+            smem_desc<L::kDescType>(v_addr + kk * 16 * L::kRowBytes, L::kKvBlock, L::kAtom);
         wgmma_pv<D>(o, p_hi[kk], dv);
         wgmma_pv<D>(o, p_lo[kk], dv);
       }
@@ -883,17 +966,17 @@ EncodeTiled encoder() {
 }
 
 // (D, Hkv, Sk, B) map of a K or V view, strides in elements; boxes of
-// `cols` columns x 128 keys, out-of-range keys zero-filled; 64 columns in
+// `cols` columns x `keys` keys, out-of-range keys zero-filled; 64 columns in
 // the 128-byte swizzle, 16 in the 32-byte one (the box's row is the span).
 int encode_kv(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int Sk, int Hkv, int D,
-              long long s0, long long s1, long long s2, int cols) {
+              long long s0, long long s1, long long s2, int cols, int keys) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Hkv),
                               static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(s2) * 2, static_cast<cuuint64_t>(s1) * 2,
                            static_cast<cuuint64_t>(s0) * 2};
   for (int i = 0; i < 3; ++i)   // a dimension of size 1 is never stepped: any valid stride
     if (dims[i + 1] == 1) strides[i] = static_cast<cuuint64_t>(D) * 2;
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(kTcKeys), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(keys), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -913,8 +996,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (Sk > 0) {   // with no keys the kernel reads no tile
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    int err = encode_kv(enc, &tm_k, k, B, Sk, Hkv, D, st[3], st[4], st[5], L::kCols);
-    if (err == 0) err = encode_kv(enc, &tm_v, v, B, Sk, Hkv, D, st[6], st[7], st[8], L::kCols);
+    int err = encode_kv(enc, &tm_k, k, B, Sk, Hkv, D, st[3], st[4], st[5], L::kCols, L::kKeys);
+    if (err == 0)
+      err = encode_kv(enc, &tm_v, v, B, Sk, Hkv, D, st[6], st[7], st[8], L::kCols, L::kKeys);
     if (err != 0) return err;
   }
   const auto kernel = flash_attention_wgmma_kernel<D>;
@@ -955,7 +1039,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: q, k, v and out bfloat16, D 64, 80 or 128; the
+// The tensor-core kernel: q, k, v and out bfloat16, D 64, 80, 128 or 256; the
 // rest as flash_attention above.
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out,
                                      int B, int Sq, int Sk, int Hkv, int G, int D,
@@ -971,5 +1055,6 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v
   if (D == 64) return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
   if (D == 80) return launch_wgmma<80>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
   if (D == 128) return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
+  if (D == 256) return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, Hkv, G, st, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

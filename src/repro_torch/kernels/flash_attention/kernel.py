@@ -5,12 +5,13 @@
 (:func:`ref.flash_attention_ref`) on CPU tensors. :func:`variant` picks the
 kernel from the type and head dim alone:
 
-- ``"tensor_core"``, bfloat16 with D 64, 80 or 128: ``flash_attention_wgmma``,
-  128 (query position, query head) rows of a kv head a CTA, 128-key K/V
-  tiles brought by TMA from a producer warpgroup, q.k and p.v on the
-  tensor cores (wgmma), P as two bfloat16 terms (hi + lo, about 16 bits)
-  for p.v; tiles in 64-column blocks in the 128-byte swizzle at D 64 /
-  128, in 16-column blocks in the 32-byte swizzle at D 80;
+- ``"tensor_core"``, bfloat16 with D 64, 80, 128 or 256:
+  ``flash_attention_wgmma``, 128 (query position, query head) rows of a kv
+  head a CTA, K/V tiles (128 keys, 64 at D 256) brought by TMA from a
+  producer warpgroup, q.k and p.v on the tensor cores (wgmma), P as two
+  bfloat16 terms (hi + lo, about 16 bits) for p.v; tiles in 64-column
+  blocks in the 128-byte swizzle at D 64 / 128 / 256, in 16-column blocks
+  in the 32-byte swizzle at D 80;
 - ``"cuda_core"``, float32 and bfloat16 at any other D: ``flash_attention``,
   64 rows a block, 64-key tiles, everything in float32 on the CUDA cores.
 
@@ -39,9 +40,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROWS = 64                      # kRows in the source (CUDA-core kernel)
 MAX_D = 256                    # kMaxD in the source
 TC_ROWS = 128                  # kTcRows: rows of a tensor-core CTA
-TC_KEYS = 128                  # kTcKeys: keys of a tensor-core tile
-TC_STAGES = {64: 3, 80: 2, 128: 2}   # kTcStages64, kTcStages80, kTcStages128: K/V ring stages
-TC_DIMS = tuple(TC_STAGES)           # head dims the tensor-core kernel takes
+TC_KEYS = 128                  # kTcKeys: keys of a K/V tile
+TC_KEYS_256 = 64               # kTcKeys256: at D 256
+TC_STAGES = {64: 3, 80: 2, 128: 2, 256: 2}       # kTcStages<D>: K/V ring stages
+TC_DIMS = tuple(TC_STAGES)                       # head dims the tensor-core kernel takes
 VARIANTS = ("tensor_core", "cuda_core")
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
@@ -54,7 +56,7 @@ build = _entry.build
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs (dtype, head_dim) on the card: "tensor_core"
-    for bfloat16 at D 64, 80 or 128, "cuda_core" for everything else."""
+    for bfloat16 at D 64, 80, 128 or 256, "cuda_core" for everything else."""
     return "tensor_core" if dtype == torch.bfloat16 and head_dim in TC_DIMS else "cuda_core"
 
 

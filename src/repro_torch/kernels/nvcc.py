@@ -4,7 +4,8 @@ Every kernel is one ``csrc/<name>.cu`` file with a plain C entry point that
 takes the current stream and returns the launch's ``cudaGetLastError()``.
 At first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/`` beside its package, named by a hash of the
-source, and loaded with ``ctypes``. :func:`build_all` starts one ``nvcc``
+source, with nvcc's log (``-Xptxas -v``: registers and spills) beside it,
+and loaded with ``ctypes``. :func:`build_all` starts one ``nvcc``
 per source at once and waits for all of them; a failed build raises with
 nvcc's stderr. Nothing is compiled when a module is imported.
 """
@@ -40,10 +41,15 @@ def library_path(source: Path) -> Path:
     return source.parent.parent / "build" / f"lib{source.stem}_{digest}.so"
 
 
+def log_path(library: Path) -> Path:
+    """Where the compiler log of ``library`` is kept: ``lib<stem>_<hash>.log``."""
+    return library.with_suffix(".log")
+
+
 def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
     """Compile every source not built yet, one ``nvcc`` each, all started
-    together. Returns (library path, compiler log; empty when already
-    built) per source, in order."""
+    together. Returns (library path, compiler log) per source, in order; a
+    library built before gives the log kept beside it (empty if none was)."""
     jobs = []
     for src in sources:
         lib = library_path(src)
@@ -59,12 +65,15 @@ def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
     out, failed = [], []
     for src, lib, tmp, proc in jobs:
         if proc is None:
-            out.append((lib, ""))
+            log = log_path(lib)
+            out.append((lib, log.read_text() if log.exists() else ""))
             continue
         _, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
             continue
+        log_path(tmp).write_text(err)
+        os.replace(log_path(tmp), log_path(lib))
         os.replace(tmp, lib)
         out.append((lib, err))
     if failed:
@@ -88,7 +97,7 @@ class CudaEntry:
 
     def build(self) -> Tuple[Path, str]:
         """Compile the source if it has not been built yet. Returns (library
-        path, compiler log; empty when already built)."""
+        path, compiler log)."""
         return build(self.source)
 
     def __call__(self, *args) -> None:

@@ -62,7 +62,7 @@ def test_ops_match_reference_on_padded_lanes(seed, srrip):
     ways = np.array([g[1] for g in LANE_GEOMETRIES], np.int32)
     js = jax.tree.map(lambda x: np.broadcast_to(x, (L,) + x.shape),
                       jdc.init_cache(PAD_SETS, PAD_WAYS))
-    ts = tdc.init_cache(PAD_SETS, PAD_WAYS, batch=(L,))
+    ts = tdc.init_cache(PAD_SETS, PAD_WAYS, batch=(L,), device="cpu")
     t_sets, t_ways = torch.from_numpy(sets), torch.from_numpy(ways)
     for _ in range(30):
         blk = rng.integers(0, 4 * PAD_SETS * PAD_WAYS, L).astype(np.int32)
@@ -95,7 +95,7 @@ def test_batched_probe_lookup_matches_reference(srrip):
     jpol = J_SRRIP.bind(None) if srrip else None
     tpol = T_SRRIP.bind(None) if srrip else None
     js = jdc.init_cache(8, 4)
-    ts = tdc.init_cache(8, 4, batch=(1,))
+    ts = tdc.init_cache(8, 4, batch=(1,), device="cpu")
     for b in rng.integers(0, 64, 40).astype(np.int32):
         js, _, _ = jdc.insert(js, jnp.int32(b), num_sets=6, ways=3, policy=jpol)
         tdc.insert(ts, torch.tensor([b]), torch.tensor([True]),
@@ -114,7 +114,7 @@ def test_batched_probe_lookup_matches_reference(srrip):
 def test_eviction_ignores_padded_ways():
     """A full effective set evicts its LRU member even with padded ways
     empty beside it."""
-    st_ = tdc.init_cache(1, 8)
+    st_ = tdc.init_cache(1, 8, device="cpu")
     kw = dict(num_sets=1, ways=2)
     for b in (1, 2):
         tdc.insert(st_, torch.tensor(b, dtype=torch.int32), **kw)
@@ -148,7 +148,7 @@ def test_invalidate_matches_reference_on_padded_lanes(srrip):
     ways = np.array([g[1] for g in LANE_GEOMETRIES], np.int32)
     js = jax.tree.map(lambda x: np.broadcast_to(x, (L,) + x.shape),
                       jdc.init_cache(PAD_SETS, PAD_WAYS))
-    ts = tdc.init_cache(PAD_SETS, PAD_WAYS, batch=(L,))
+    ts = tdc.init_cache(PAD_SETS, PAD_WAYS, batch=(L,), device="cpu")
     t_sets, t_ways = torch.from_numpy(sets), torch.from_numpy(ways)
     inserted = []
     for _ in range(20):
@@ -166,3 +166,20 @@ def test_invalidate_matches_reference_on_padded_lanes(srrip):
         js = j_inv(js, blk, sets, ways)
         _check_state(js, ts, LANE_GEOMETRIES)
     assert hits > 0
+
+
+@pytest.mark.parametrize("make", ["init_cache", "init_spp", "init_queue", "init_wfq"])
+def test_state_constructors_default_to_cuda(make, monkeypatch):
+    """The simulator's state constructors default to ``device="cuda"`` and,
+    with no card, raise rather than fall back to the CPU; ``"cpu"`` builds
+    the same state there."""
+    from repro_torch.configs.base import FamConfig
+    from repro_torch.core import prefetch_queue, spp, wfq
+    calls = {"init_cache": lambda **kw: tdc.init_cache(8, 4, **kw),
+             "init_spp": lambda **kw: spp.init_spp(FamConfig(), **kw),
+             "init_queue": lambda **kw: prefetch_queue.init_queue(16, **kw),
+             "init_wfq": lambda **kw: wfq.init_wfq(**kw)}
+    assert all(t.device.type == "cpu" for t in calls[make](device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[make]()

@@ -52,7 +52,7 @@ def test_cache_step_matches_reference(pad_sets, pad_ways, sets_frac,
     rng = np.random.default_rng(seed)
     ref = jax.tree.map(lambda x: np.broadcast_to(x, (LANES,) + x.shape),
                        jdc.init_cache(pad_sets, pad_ways))
-    port = tdc.init_cache(pad_sets, pad_ways, batch=(LANES,))
+    port = tdc.init_cache(pad_sets, pad_ways, batch=(LANES,), device="cpu")
     for _ in range(3):
         fills = rng.integers(0, 120, (LANES, c)).astype(np.int32)
         fen = rng.random((LANES, c)) < 0.7

@@ -10,8 +10,8 @@ plain version in one pass). Lengths the Pallas wrapper does not take
 version. They also check the wrapper's input checks, that it counts no
 launch on CPU tensors, and that the CUDA source is built with the others.
 Two kernels sit behind the wrapper, picked by type and head dim alone
-(:func:`kernel.variant`): the tensor-core kernel for bfloat16 at D 64, 80
-and 128, the CUDA-core kernel for everything else; these tests check that
+(:func:`kernel.variant`): the tensor-core kernel for bfloat16 at D 64, 80,
+128 and 256, the CUDA-core kernel for everything else; these tests check that
 choice, the per-variant launch counts and that the wrapper's constants are
 the source's. The kernels themselves are held to the same plain version on
 the card by ``chip_smoke.py``.
@@ -95,14 +95,18 @@ def test_any_length_matches_jax_ref(Sq, Sk, bf16, causal):
     _close(flash_attention(q, k, v, causal=causal), want, bf16)
 
 
-@pytest.mark.parametrize("D", [64, 80, 128])
-@pytest.mark.parametrize("G", [1, 4, 6])
+@pytest.mark.parametrize("G,D,Hkv,Sq,Sk", [
+    pytest.param(G, D, 2, 37, 53, id=f"{G}-{D}") for G in (1, 4, 6) for D in (64, 80, 128, 256)] + [
+    # gemma-2b's grouping: 8 query heads of one kv head
+    pytest.param(8, 256, 1, sq, sk, id=f"8-256-{sq}-{sk}")
+    for sq, sk in ((75, 75), (75, 139), (139, 75))])
 @pytest.mark.parametrize("causal", [True, False])
-def test_tensor_core_shapes_match_jax_ref(D, G, causal):
+def test_tensor_core_shapes_match_jax_ref(G, D, Hkv, Sq, Sk, causal):
     """bf16 at the tensor-core head dims, G query heads per kv head and
     lengths that end mid-tile: the CPU wrapper (the plain version) against
-    the JAX plain version."""
-    (jq, jk, jv), (q, k, v) = _inputs(1, 37, 53, 2 * G, 2, D, True, seed=5)
+    the JAX plain version. The kernel's own tiles are held to the plain
+    version on the card by ``chip_smoke.py``."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, Sq, Sk, G * Hkv, Hkv, D, True, seed=5)
     assert fa_kernel.variant(q.dtype, D) == "tensor_core"
     want = j_flash_attention_ref(jq, jk, jv, causal=causal)
     _close(flash_attention(q, k, v, causal=causal), want, True)
@@ -111,18 +115,18 @@ def test_tensor_core_shapes_match_jax_ref(D, G, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [8, 64, 80, 128, 256])
 def test_variant_is_chosen_by_type_and_head_dim(dtype, D):
-    """bf16 at D 64, 80 or 128 runs on the tensor cores; float32 (which
-    needs true float32 products for its 2e-5) and bf16 at other D on the
-    CUDA cores."""
-    assert fa_kernel.TC_DIMS == (64, 80, 128)
-    want = "tensor_core" if dtype == torch.bfloat16 and D in (64, 80, 128) else "cuda_core"
+    """bf16 at D 64, 80, 128 or 256 runs on the tensor cores; float32
+    (which needs true float32 products for its 2e-5) and bf16 at other D
+    on the CUDA cores."""
+    assert fa_kernel.TC_DIMS == (64, 80, 128, 256)
+    want = "tensor_core" if dtype == torch.bfloat16 and D in (64, 80, 128, 256) else "cuda_core"
     assert fa_kernel.variant(dtype, D) == want
     assert want in fa_kernel.VARIANTS
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64), (torch.bfloat16, 80),
                                      (torch.bfloat16, 128), (torch.float32, 64),
-                                     (torch.bfloat16, 32)])
+                                     (torch.bfloat16, 32), (torch.bfloat16, 256)])
 def test_cpu_wrapper_counts_no_launch_of_either_variant(dtype, D):
     _, (q, k, v) = _inputs(1, 9, 9, 4, 2, D, False, seed=6)
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -204,9 +208,8 @@ def test_wrapper_limits_are_the_source_constants(name, constant):
 
 
 @pytest.mark.parametrize("name,constant", [
-    ("TC_ROWS", "kTcRows"), ("TC_KEYS", "kTcKeys"),
-    ("TC_STAGES[64]", "kTcStages64"), ("TC_STAGES[80]", "kTcStages80"),
-    ("TC_STAGES[128]", "kTcStages128")])
+    ("TC_ROWS", "kTcRows"), ("TC_KEYS", "kTcKeys"), ("TC_KEYS_256", "kTcKeys256")] + [
+    (f"TC_STAGES[{d}]", f"kTcStages{d}") for d in (64, 80, 128, 256)])
 def test_tensor_core_constants_are_the_source_constants(name, constant):
     """Rows per CTA, keys per tile and ring stages of the tensor-core kernel
     are the source's constexprs."""

@@ -426,3 +426,23 @@ def test_build_reuses_a_built_library_without_nvcc(tmp_path, monkeypatch):
     assert nvcc.build(srcs[0]) == (lib, "")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         nvcc.build_all(srcs)
+
+
+def test_build_keeps_the_compiler_log_beside_the_library(tmp_path, monkeypatch):
+    """nvcc's log (ptxas -v's registers and spills) is kept beside the
+    library it built, and a later build of the same source, served from
+    the built library without nvcc, returns that log."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'ptxas info    : Used 40 registers' >&2\n"
+                    "while [ $# -gt 1 ]; do if [ \"$1\" = -o ]; then : > \"$2\"; fi; shift; done\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    src = tmp_path / "k" / "csrc" / "k.cu"
+    src.parent.mkdir(parents=True)
+    src.write_text("// k\n")
+    lib, log = nvcc.build(src)
+    assert "Used 40 registers" in log and nvcc.log_path(lib).read_text() == log
+    fake.unlink()
+    assert nvcc.build(src) == (lib, log)
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted([lib.name, nvcc.log_path(lib).name])

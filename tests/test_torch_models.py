@@ -505,6 +505,43 @@ def test_engine_greedy_tokens_equal_reference(arch, backend):
     assert stats == jstats
 
 
+@functools.lru_cache(maxsize=None)
+def _gemma_layout(dtype):
+    """gemma-2b's own attention layout (d_model 2,048, Hq 8, Hkv 1, D 256,
+    GeGLU, tied and scaled embeddings) at 2 layers, d_ff and vocab cut to
+    256 and 512: the head dim the tensor-core kernel takes at 256, which
+    the smoke config's D 16 never reaches."""
+    cut = dict(num_layers=2, d_ff=256, vocab_size=512, dtype=dtype)
+    jc = dataclasses.replace(j_get_config("gemma-2b"), **cut)
+    tc = dataclasses.replace(get_config("gemma-2b"), **cut)
+    params = JT.init_lm(jax.random.PRNGKey(4), jc)
+    return jc, tc, params, params_from_numpy(tc, jax.tree.map(np.asarray, params), "cpu")
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_gemma_layout_engine_and_prefill_match_reference(backend):
+    """At gemma-2b's attention layout: Engine.generate's greedy tokens equal
+    the reference's in float32, and the prefill's last logits agree in
+    float32 (F32) and in bfloat16, the config's compute type (BF16), under
+    both kernel backends (``"cuda"`` runs the flash wrapper's plain version
+    on these CPU tensors)."""
+    jc, tc, params, lm = _gemma_layout("float32")
+    assert (tc.num_heads, tc.num_kv_heads, tc.head_dim, tc.d_model) == (8, 1, 256, 2048)
+    jt, tt = _tokens(tc, 2, 19, seed=5)
+    want, jstats = JEngine(j_build_model(jc, None), params,
+                           JServeConfig(max_new_tokens=6)).generate({"tokens": jt})
+    model = build_model(tc, device="cpu", kernel_backend=backend)
+    got, stats = Engine(model, lm, ServeConfig(max_new_tokens=6)).generate({"tokens": tt})
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert stats == jstats
+    for dtype in ("float32", "bfloat16"):
+        jc, tc, params, lm = _gemma_layout(dtype)
+        jl, _ = JT.prefill(jc, None, params, jt)
+        tl, _ = build_model(tc, device="cpu", kernel_backend=backend).prefill(
+            lm, {"tokens": tt})
+        _close(tl, jl, **_tol(dtype))
+
+
 def test_engine_temperature_sampling_is_seeded():
     _, tc, _, lm = _setup("granite-3-2b-smoke", "float32")
     model = build_model(tc, device="cpu")

@@ -104,7 +104,7 @@ def test_predict_defaults_to_the_config_threshold():
     """``spp.predict`` without a threshold uses the config's, as in JAX."""
     cfg = _cfg()
     rng = np.random.default_rng(3)
-    s = tspp.init_spp(cfg)
+    s = tspp.init_spp(cfg, device="cpu")
     for blk in rng.integers(0, 16, 60):
         tspp.update(cfg, s, torch.tensor(2, dtype=torch.int32),
                     torch.tensor(int(blk), dtype=torch.int32))
