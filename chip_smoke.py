@@ -55,17 +55,18 @@ code != 0):
    lengths that end mid-tile (Sq = Sk in 1, 1,000, 4,000 at D 64, 80, 128,
    256; Sq != Sk at D 64 and 80),
    f32 and bf16, causal and not, within 2e-5 / 2e-2; bf16 at D 64, 80, 128
-   and 256 over G in 1, 4, 6, 8, 32 on strided views of a fused q/k/v tensor,
-   within 2e-2; each case launches the variant its type and D name; the
+   and 256 over G in 1, 4, 6, 7, 8, 32 on strided views of a fused q/k/v
+   tensor, within 2e-2; each case launches the variant its type and D name; the
    serving prefill's shape (B 4, Hq 32, Hkv 8, D 64, S 4,000, bf16,
    causal) within FLASH_PATH_TOL; device time per launch there (and of
    the CUDA-core kernel in f32 at that shape), the plain version's time,
    the bound (bf16 tensor-core rate) and
-   ``scaled_dot_product_attention``'s time; then every shape the family
-   serving phases' prefills give the kernel (gemma-2b's MQA at D 256 and
-   zamba2-2.7b's D 80 on the tensor-core kernel; whisper-base's encoder,
-   decoder self-attention and cross-attention; qwen2-vl-72b's GQA at D
-   128) within FLASH_PATH_TOL, each timed the same way;
+   ``scaled_dot_product_attention``'s time; then every shape the serving
+   phases of PATH_SHAPE_PHASES give the kernel (gemma-2b's MQA at D 256,
+   yi-9b's G 8, internlm2-20b's G 6 and arctic-480b's G 7 at D 128,
+   zamba2-2.7b's D 80, whisper-base's encoder, decoder self-attention and
+   cross-attention, qwen2-vl-72b's GQA at D 128) within FLASH_PATH_TOL,
+   each timed the same way;
 5. tiered-KV decode at granite-3-2b's attention (Hq 32, Hkv 8, D 64, 16-token
    blocks, 4,096-token context, 512 fast blocks in 32 sets x 16 ways):
    2 requests x 40 layers, each with its own ``TieredKV`` state, prompts of
@@ -101,13 +102,27 @@ code != 0):
    same params teacher-forced under ``"cuda"`` and ``"torch"``: the
    prefill's logits and K/V cache and every decode step's logits within
    SERVE_TOL, the (token, layer) top-8 routing choices that differ between
-   the two printed; prefill tokens/s and wall per decode step;
-7c-7f. serving gemma-2b and the other four families at their published
-   widths (FAMILY_SERVING; f32 params, bf16 compute, random weights from a
-   seed), one phase each: ``gemma_serving`` (gemma-2b: 18 layers, d_model
-   2,048, Hq 8, Hkv 1, D 256, GeGLU 16,384, vocab 256,000, tied and scaled
-   embeddings; 4 x 4,000 + 16, phase serving's shape; 18 tensor-core
-   ``flash_attention`` launches a prefill), ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
+   the two printed; prefill tokens/s and wall per decode step, the
+   experts' work a prefill, peak memory;
+7b'. ``arctic_serving``: arctic-480b at its published widths (d_model
+   7,168, Hq 56, Hkv 8, D 128, 128 experts top-2 at d_ff 4,864 beside a
+   dense residual of 4,864, vocab 32,000), its 35 layers cut to 2 and its
+   params in bf16 (MOE_SERVING) through the same function, 1 x 1,024 + 8,
+   2 tensor-core launches a prefill at G 7: held by (1), each layer given
+   the kernel run's input and expert choices; (2) is left out (f32
+   experts do not fit), the distances with free routing printed;
+7c-7f. serving gemma-2b, yi-9b, internlm2-20b and the other four families
+   at their published widths (FAMILY_SERVING; f32 params, bf16 compute,
+   random weights from a seed), one phase each: ``gemma_serving``
+   (gemma-2b: 18 layers, d_model 2,048, Hq 8, Hkv 1, D 256, GeGLU 16,384,
+   vocab 256,000, tied and scaled embeddings; 4 x 4,000 + 16, phase
+   serving's shape; 18 tensor-core ``flash_attention`` launches a
+   prefill), ``yi_serving`` (yi-9b: 48 layers, d_model 4,096, Hq 32, Hkv
+   4, D 128, SwiGLU 11,008, vocab 64,000, nothing cut; 4 x 4,000 + 8; 48
+   tensor-core launches a prefill), ``internlm2_serving`` (internlm2-20b:
+   d_model 6,144, Hq 48, Hkv 8, D 128, SwiGLU 16,384, vocab 92,544, rope
+   theta 1e6, its 48 layers cut to 24 to fit one card; 4 x 4,000 + 8; 24
+   tensor-core launches a prefill), ``hybrid_serving`` (zamba2-2.7b: 54 Mamba2 layers and
    one shared attention block after every 6, D 80; 2 x 2,048 prompt
    tokens + 8 new; 9 tensor-core ``flash_attention`` launches a prefill),
    ``ssm_serving`` (xlstm-350m at its published widths, its 12 mLSTM +
@@ -405,16 +420,13 @@ FLASH_UNEQUAL_DIMS = (64, 80)
 # (G 6 fills no power-of-two tile), on strided views of a fused q/k/v tensor
 FLASH_TC_DIMS = (64, 80, 128, 256)
 FLASH_TC_LENGTHS = ((1, 1), (1000, 1000), (4000, 4000), (1000, 3000), (3000, 1000))
-FLASH_TC_GROUPS = (1, 4, 6, 8, 32)
+FLASH_TC_GROUPS = (1, 4, 6, 7, 8, 32)     # 7: arctic-480b's 56 / 8, a divisor of no tile
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # at the path's shape: bf16's 2e-2 as rtol (over 2 ulps), atol cut to 1e-3,
 # 1/40 of the typical |out| of 0.04 at S 4,000, so an error at the scale
 # of the outputs fails
 FLASH_PATH_TOL = {"rtol": 2e-2, "atol": 1e-3}
 BF16_FLOPS = 989e12            # H100 SXM published dense bf16 rate (tensor cores)
-# the tensor-core kernel at D 128 is timed at yi-9b's attention widths
-# (src/repro/configs/yi_9b.py) at the serving batch and prompt
-FLASH_D128_ARCH = "yi-9b"
 # serving at granite-3-2b (src/repro/configs/granite_3_2b.py), full width
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 4000, 16, 0
@@ -422,6 +434,20 @@ SERVE_TOL = 0.05               # tests/test_models.py:89-101: atol 0.05 max|ref|
 # MoE serving at granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py)
 MOE_SERVE_ARCH = "granite-moe-1b-a400m"
 MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
+# the MoE serving phases (moe_serving_path): granite-moe-1b-a400m whole, and
+# arctic-480b (src/repro/configs/arctic_480b.py) at its published widths, its
+# 35 layers cut to 2 and its params in bf16, the reference's rule for
+# arctic-class models (src/repro/launch/dryrun.py:93-100): 2 layers are
+# 51.56 GiB; f32 params would not fit one layer beside its transients.
+# ``f32`` names the phases held end to end in f32 compute too: arctic's
+# bf16 experts cast to f32 a call would be 17.8 GB a weight
+MOE_SERVING = {
+    "moe_serving": dict(arch=MOE_SERVE_ARCH, batch=MOE_SERVE_BATCH, prompt=MOE_SERVE_PROMPT,
+                        new=MOE_SERVE_NEW, flash=24, variant="tensor_core", f32=True),
+    "arctic_serving": dict(arch="arctic-480b", batch=1, prompt=1024, new=8, flash=2,
+                           variant="tensor_core", f32=False, layers=2,
+                           param_dtype="bfloat16"),
+}
 # serving gemma-2b and the hybrid, ssm, audio and vlm families (phases
 # 7c-7f) at their published widths (src/repro/configs/gemma_2b.py,
 # zamba2_2_7b.py, xlstm_350m.py, whisper_base.py, qwen2_vl_72b.py; gemma-2b
@@ -429,10 +455,19 @@ MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 2, 2048, 8
 # the batch, prompt and new tokens, the
 # flash_attention launches a prefill and their variant; qwen2-vl-72b's 80
 # layers cut to 8 to fit one card; xlstm-350m's 24 layers (12 pairs) cut to
-# 8 (4 pairs) for time (its token loops took 29.9-45.7 s of the run)
+# 8 (4 pairs) for time (its token loops took 29.9-45.7 s of the run);
+# yi-9b (src/repro/configs/yi_9b.py, 32.89 GiB of f32 params, nothing cut)
+# and internlm2-20b (internlm2_20b.py, its 48 layers cut to 24, 39.11 GiB, so
+# the activations, the KV cache and the torch backend's score chunks fit
+# beside them) at phase serving's batch and prompt with 8 new tokens, as
+# their decode steps are host-bound
 FAMILY_SERVING = {
     "gemma_serving": dict(arch="gemma-2b", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
                           new=SERVE_NEW, flash=18, variant="tensor_core"),
+    "yi_serving": dict(arch="yi-9b", batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=8,
+                       flash=48, variant="tensor_core"),
+    "internlm2_serving": dict(arch="internlm2-20b", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                              new=8, flash=24, variant="tensor_core", layers=24),
     "hybrid_serving": dict(arch="zamba2-2.7b", batch=2, prompt=2048, new=8, flash=9,
                            variant="tensor_core"),
     "ssm_serving": dict(arch="xlstm-350m", batch=2, prompt=1024, new=8, flash=0,
@@ -442,6 +477,10 @@ FAMILY_SERVING = {
     "vlm_serving": dict(arch="qwen2-vl-72b", batch=1, prompt=4096, new=8, flash=8,
                         variant="tensor_core", layers=8),
 }
+# the serving phases whose prefill shapes phase flash_attention_vs_plain
+# holds and times: the family phases that launch the kernel, and arctic's G 7
+PATH_SHAPE_PHASES = tuple(p for p, s in FAMILY_SERVING.items() if s["flash"]) + (
+    "arctic_serving",)
 # qwen2-vl's (t, h, w) planes: VLM_TEXT text tokens, a VLM_GRID x VLM_GRID
 # image at one t, then text from past the image's largest position
 VLM_TEXT, VLM_GRID = 1024, 32
@@ -1521,8 +1560,8 @@ def flash_vs_plain(torch):
     each case launches the variant ``variant`` names. Then the serving
     prefill's shape (bf16, causal) against the plain version within
     FLASH_PATH_TOL, timed there beside the library call and the CUDA-core
-    kernel in f32, and the family serving phases' shapes
-    (:func:`_flash_path_shape`)."""
+    kernel in f32, and the shapes of the serving phases of
+    PATH_SHAPE_PHASES (:func:`_flash_path_shape`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention.kernel import variant
@@ -1597,16 +1636,6 @@ def flash_vs_plain(torch):
     f32_ms = _device_ms(torch, lambda: flash_attention(qf, kf, vf), 3, "flash_attention_kernel")
     f32_bound, _ = _bound(2 * nbytes, flops, F32_FLOPS)
     del qf, kf, vf
-    from repro_torch.configs.registry import get_config
-    big = get_config(FLASH_D128_ARCH)
-    Hq2, Hkv2, D2 = big.num_heads, big.num_kv_heads, big.head_dim
-    q2, k2, v2 = (rnd((B, S, h, D2), torch.bfloat16) for h in (Hq2, Hkv2, Hkv2))
-    flops2 = _attention_flops(B, S, S, Hq2, D2, True)
-    d128_ms = _device_ms(torch, lambda: flash_attention(q2, k2, v2), 20, "flash_attention_wgmma_kernel")
-    qt2, kt2, vt2 = (x.transpose(1, 2) for x in (q2, k2, v2))
-    d128_lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt2, kt2, vt2, is_causal=True, enable_gqa=True), 20)
-    del q2, k2, v2, qt2, kt2, vt2
     check(all(instances.get(name) == {0, 1, 2} for name in ("float32", "bfloat16")),
           f"each type runs every CUDA-core instance: {instances}")
     print("flash_attention cases within tolerance, by variant and type: " +
@@ -1622,23 +1651,41 @@ def flash_vs_plain(torch):
           f"plain {out['plain_ms']:.4f} ms/call; CUDA-core kernel in f32 at that shape "
           f"{f32_ms:.4f} ms ({flops / f32_ms / 1e9:.2f} TFLOP/s, bound {f32_bound:.4f} ms at "
           f"{F32_FLOPS:.4g}/s)", flush=True)
-    print(f"flash_attention at D 128 ({FLASH_D128_ARCH}: B {B}, S {S}, Hq {Hq2}, Hkv {Hkv2}, "
-          f"D {D2}, bf16, causal): tensor-core kernel {d128_ms:.4f} ms device time/launch, "
-          f"{flops2 / d128_ms / 1e9:.2f} TFLOP/s, {flops2 / BF16_FLOPS * 1e3 / d128_ms:.2%} of "
-          f"its bound {flops2 / BF16_FLOPS * 1e3:.4f} ms ({flops2:.4g} operations); library "
-          f"{d128_lib:.4f} ms, kernel / library {d128_ms / d128_lib:.3f}",
-          flush=True)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    for phase, spec in FAMILY_SERVING.items():
-        if spec["flash"]:
-            _flash_path_shape(torch, rnd, phase)
+    for phase in PATH_SHAPE_PHASES:
+        _flash_path_shape(torch, rnd, phase)
     return out
+
+
+def _serving_config(spec):
+    """A serving phase's config: the arch's, with the phase's ``layers``
+    and ``param_dtype`` cuts."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(spec["arch"])
+    cut = {k: spec[k] for k in ("layers", "param_dtype") if k in spec}
+    if "layers" in cut:
+        cut["num_layers"] = cut.pop("layers")
+    return dataclasses.replace(cfg, **cut)
+
+
+def _cut_line(spec):
+    """The cuts of a serving phase's config against its arch's, printed."""
+    from repro_torch.configs.registry import get_config
+    full, cfg = get_config(spec["arch"]), _serving_config(spec)
+    cuts = []
+    if cfg.num_layers != full.num_layers:
+        cuts.append(f"layers cut from {full.num_layers} to {cfg.num_layers}")
+    if cfg.param_dtype != full.param_dtype:
+        cuts.append(f"params in {cfg.param_dtype}, not {full.param_dtype}")
+    return "; ".join(cuts) or "nothing cut"
 
 
 def _path_attention_shapes(cfg, spec):
     """[(what, launches a prefill, B, Sq, Sk, Hq, Hkv, D, causal)] of the
-    flash_attention calls a prefill of a family serving phase makes."""
+    flash_attention calls a prefill of a serving phase makes (``cfg`` the
+    phase's cut config)."""
     from repro_torch.models import zamba
     B, S, H = spec["batch"], spec["prompt"], (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     if cfg.is_encoder_decoder:
@@ -1648,23 +1695,22 @@ def _path_attention_shapes(cfg, spec):
                 ("cross-attention", cfg.num_layers, B, S, E, *H, False)]
     if cfg.ssm is not None:
         return [("shared attention", zamba.n_groups(cfg), B, S, S, *H, True)]
-    return [("self-attention", spec.get("layers", cfg.num_layers), B, S, S, *H, True)]
+    return [("self-attention", cfg.num_layers, B, S, S, *H, True)]
 
 
 def _flash_path_shape(torch, rnd, phase):
-    """flash_attention at each shape the prefill of family serving phase
-    ``phase`` gives it (:func:`_path_attention_shapes`, in the config's
+    """flash_attention at each shape the prefill of serving phase ``phase``
+    (one of PATH_SHAPE_PHASES) gives it (:func:`_path_attention_shapes`, in the config's
     compute type), launching the phase's variant, against the plain
     version within FLASH_PATH_TOL; device time a launch beside the bound
     (operations at the bf16 tensor-core rate, or bytes),
     scaled_dot_product_attention's time and the plain version's. The
     shapes' launches add up to the phase's a prefill."""
     import torch.nn.functional as F
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention.kernel import variant
-    spec = FAMILY_SERVING[phase]
-    cfg = get_config(spec["arch"])
+    spec = FAMILY_SERVING.get(phase) or MOE_SERVING[phase]
+    cfg = _serving_config(spec)
     shapes = _path_attention_shapes(cfg, spec)
     check(sum(s[1] for s in shapes) == spec["flash"],
           f"{phase}: the shapes' launches {shapes} add up to {spec['flash']}")
@@ -2153,21 +2199,21 @@ def _gap(pairs):
     return err, used
 
 
-def _end_to_end(kern, ref, what):
+def _end_to_end(kern, ref, what, S):
     """(max abs err / max|ref|, share of SERVE_TOL's allowance used) of
     the teacher-forced logits (prefill and every decode step) and the
-    prefill's K/V cache of two runs, unchecked."""
+    prefill's K/V cache (its S positions) of two runs, unchecked."""
     pairs = [(k, r) for k, r in zip(kern["logits"], ref["logits"])]
-    S = MOE_SERVE_PROMPT
     pairs += [(kern["cache"][c][:, :, :S], ref["cache"][c][:, :, :S]) for c in ("k", "v")]
     err, used = _gap(pairs)
     return f"{what}: max abs err / max|ref| {err:.4g}, share of the allowance {used:.4g}"
 
 
-def moe_serving_path(torch):
-    """granite-moe-1b-a400m at its published widths, random weights from a
-    seed: Engine.generate on MOE_SERVE_BATCH prompts of MOE_SERVE_PROMPT
-    random tokens with MOE_SERVE_NEW new tokens (the main path: one
+def moe_serving_path(torch, phase="moe_serving"):
+    """A MoE config at its published widths (MOE_SERVING[phase]:
+    granite-moe-1b-a400m whole, or arctic-480b cut to 2 layers with bf16
+    params), random weights from a seed: Engine.generate on the phase's
+    batch of random prompts with its new tokens (the main path: one
     tensor-core flash_attention launch per layer of the prefill, none in
     decode), then the same params teacher-forced under the kernel and the
     torch backends.
@@ -2185,21 +2231,29 @@ def moe_serving_path(torch):
     float32 compute (the CUDA-core kernel) with the kernel run's choices
     pinned, the prefill's logits and K/V cache and every decode step's
     logits within SERVE_TOL. The end-to-end distances with free routing
-    (and in bfloat16 pinned) are printed."""
-    import dataclasses
-    from repro_torch.configs.registry import get_config
+    (and in bfloat16 pinned) are printed. (2) is left out where the spec's
+    ``f32`` is false (arctic: its bf16 experts cast to f32 a call would be
+    17.8 GB a weight, which does not fit beside the params); its distances
+    with free routing are printed all the same. Prints the experts' work
+    a prefill (moe_dense computes every expert for every token) beside the
+    routed work, and peak memory."""
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Engine, ServeConfig
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(MOE_SERVE_ARCH)
+    spec = MOE_SERVING[phase]
+    cfg = _serving_config(spec)
+    B, S, N = spec["batch"], spec["prompt"], spec["new"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{phase} {cfg.name}: {_cut_line(spec)}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated at the start", flush=True)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SERVE_SEED)
     n_params = sum(p.numel() for p in params.parameters())
     check(n_params == cfg.param_count(), f"{n_params} params, config says {cfg.param_count()}")
     prompts = torch.Generator().manual_seed(SERVE_SEED + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (MOE_SERVE_BATCH, MOE_SERVE_PROMPT),
-                           generator=prompts).to(DEVICE)
-    engine = Engine(model, params, ServeConfig(max_new_tokens=MOE_SERVE_NEW, seed=SERVE_SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=prompts).to(DEVICE)
+    engine = Engine(model, params, ServeConfig(max_new_tokens=N, seed=SERVE_SEED))
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2207,19 +2261,21 @@ def moe_serving_path(torch):
     wall = time.perf_counter() - t0
     launched, variants = counts(), flash_variants()
     L = cfg.num_layers
-    check(launched["flash_attention"] == L and variants == {"tensor_core": L, "cuda_core": 0},
-          f"flash_attention launched {launched['flash_attention']} times ({variants}), "
-          f"expected {L} tensor_core")
+    check(L == spec["flash"], f"{phase}: {L} layers, {spec['flash']} launches expected")
+    check(launched["flash_attention"] == L and variants == {spec["variant"]: L, "cuda_core": 0},
+          f"{phase}: flash_attention launched {launched['flash_attention']} times ({variants}), "
+          f"expected {L} {spec['variant']}")
     check(all(v == 0 for k, v in launched.items() if k != "flash_attention"),
-          f"unexpected launches on the MoE serving path: {launched}")
-    check(gen.shape == (MOE_SERVE_BATCH, MOE_SERVE_NEW) and gen.min() >= 0
-          and gen.max() < cfg.vocab_size, f"generated tokens {gen}")
-    check(stats == {"prefill_len": MOE_SERVE_PROMPT, "new_tokens": MOE_SERVE_NEW},
-          f"stats {stats}")
-    print(f"moe serving {cfg.name}: {n_params} params ({cfg.moe.num_experts} experts top-"
-          f"{cfg.moe.top_k} at d_ff {cfg.moe.d_ff}; {cfg.param_dtype}, {cfg.dtype} compute, "
-          f"random from seed {SERVE_SEED}); Engine.generate on {MOE_SERVE_BATCH} x "
-          f"{MOE_SERVE_PROMPT} prompt tokens + {MOE_SERVE_NEW} new in {wall:.3f} s; "
+          f"unexpected launches on {phase}'s path: {launched}")
+    check(gen.shape == (B, N) and gen.min() >= 0 and gen.max() < cfg.vocab_size,
+          f"{phase}: generated tokens {gen}")
+    check(stats == {"prefill_len": S, "new_tokens": N}, f"{phase}: stats {stats}")
+    residual = (f", a dense residual at d_ff {cfg.moe.dense_d_ff or cfg.d_ff}"
+                if cfg.moe.dense_residual else "")
+    print(f"{phase} {cfg.name}: {n_params} params ({cfg.num_layers} layers, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} at d_ff {cfg.moe.d_ff}{residual}; "
+          f"{cfg.param_dtype}, {cfg.dtype} compute, random from seed {SERVE_SEED}); "
+          f"Engine.generate on {B} x {S} prompt tokens + {N} new in {wall:.3f} s; "
           f"flash_attention launches {launched['flash_attention']} ({L} layers, by variant "
           f"{variants}; counted apart from dense serving's)", flush=True)
 
@@ -2239,18 +2295,18 @@ def moe_serving_path(torch):
     check(not any(free["at_end"].values()) and not any(pinned["at_end"].values()),
           f"the torch backend launched {free['at_end']} / {pinned['at_end']}")
     for lg in kern["logits"] + free["logits"] + pinned["logits"]:
-        check(lg.shape == (MOE_SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
-              "moe logits finite, (B, vocab)")
+        check(lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+              f"{phase}: logits finite, (B, vocab)")
     prefill_differ, prefill_total = _routing_differences(kern_routes[:L],
                                                          free_routes[:L], L)
     decode_differ, decode_total = _routing_differences(kern_routes[L:],
                                                        free_routes[L:], L)
-    print(f"moe routing in bfloat16, kernel vs torch backend end to end: "
+    print(f"{phase} routing in bfloat16, kernel vs torch backend end to end: "
           f"{sum(prefill_differ)} of {prefill_total} (token, layer) top-{cfg.moe.top_k} "
           f"choices differ in the prefill (by layer {prefill_differ}), {sum(decode_differ)} "
           f"of {decode_total} in decode (by layer {decode_differ}); unchecked "
-          + _end_to_end(kern, free, "routing freely") + "; "
-          + _end_to_end(kern, pinned, "the kernel run's routing pinned")
+          + _end_to_end(kern, free, "routing freely", S) + "; "
+          + _end_to_end(kern, pinned, "the kernel run's routing pinned", S)
           + f" (SERVE_TOL {SERVE_TOL})", flush=True)
     steps = kern["step_s"]
     step = float(np.mean(steps))
@@ -2264,15 +2320,22 @@ def moe_serving_path(torch):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         prefill_s[name] = float(np.median(walls))
-    print(f"moe serving prefill (median of {MOE_PREFILL_REPEATS} after the teacher-forced "
+    print(f"{phase} prefill (median of {MOE_PREFILL_REPEATS} after the teacher-forced "
           f"runs): {prefill_s['cuda']:.4f} s wall, "
-          f"{MOE_SERVE_BATCH * MOE_SERVE_PROMPT / prefill_s['cuda']:.1f} prefill tokens/s "
+          f"{B * S / prefill_s['cuda']:.1f} prefill tokens/s "
           f"(torch backend {prefill_s['torch']:.4f} s; the teacher-forced runs' first "
           f"prefills {kern['prefill_s']:.4f} / {free['prefill_s']:.4f} s); decode: "
           f"{step * 1e3:.3f} ms wall per "
           f"step (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f} over {len(steps)} "
-          f"steps), {MOE_SERVE_BATCH / step:.1f} decode tokens/s (torch backend "
+          f"steps), {B / step:.1f} decode tokens/s (torch backend "
           f"{np.mean(free['step_s']) * 1e3:.3f} ms per step)", flush=True)
+    m = cfg.moe
+    expert_flops = 2 * B * S * L * 3 * cfg.d_model * m.d_ff     # one expert, every token
+    print(f"{phase} experts' work a prefill: moe_dense computes all {m.num_experts} experts "
+          f"for every token, {expert_flops * m.num_experts:.4g} operations "
+          f"({expert_flops * m.num_experts / prefill_s['cuda'] / 1e12:.2f} TFLOP/s over the "
+          f"prefill's wall), {m.num_experts // m.top_k} times the {expert_flops * m.top_k:.4g} "
+          f"of the top-{m.top_k} routing", flush=True)
     del kern, free, pinned
 
     # (1) bfloat16, layer by layer: the same input and expert choices
@@ -2281,17 +2344,31 @@ def moe_serving_path(torch):
                                    pinned=layer_routes)
     _, _, free_layer_routes = _layerwise(torch, cfg, params, tokens, "torch", inputs=xs)
     layer_differ, _ = _routing_differences(layer_routes, free_layer_routes, L)
-    rel = [_within(torch, a, b, f"moe layer {i} update (bfloat16, same input and experts)")
+    rel = [_within(torch, a, b, f"{phase} layer {i} update (bfloat16, same input and experts)")
            for i, (a, b) in enumerate(zip(kern_updates, ref_updates))]
-    print(f"moe layer by layer in bfloat16 (each layer the kernel run's input and expert "
+    print(f"{phase} layer by layer in bfloat16 (each layer the kernel run's input and expert "
           f"choices), kernel vs torch backend: every layer's update within SERVE_TOL, worst "
           f"max abs err / max|ref| {max(e for e, _ in rel):.4g} (layer "
           f"{int(np.argmax([e for e, _ in rel]))}), share of the allowance "
           f"{max(u for _, u in rel):.4g}; with the same inputs but free routing the choices "
-          f"differ by layer {layer_differ} of {MOE_SERVE_BATCH * MOE_SERVE_PROMPT}", flush=True)
+          f"differ by layer {layer_differ} of {B * S}", flush=True)
     del xs, kern_updates, ref_updates
+    if spec["f32"]:
+        _moe_f32_end_to_end(torch, cfg, params, tokens, fed, S, N)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{phase} {cfg.name} on {_card()}: peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    del params, engine, model
+    torch.cuda.empty_cache()
+    return launched
 
-    # (2) float32 compute end to end (the CUDA-core kernel), routing pinned
+
+def _moe_f32_end_to_end(torch, cfg, params, tokens, fed, S, N):
+    """moe_serving_path's comparison (2): float32 compute end to end (the
+    CUDA-core kernel), the kernel run's routing pinned."""
+    import dataclasses
+    from repro_torch.models import build_model
+    L = cfg.num_layers
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     with _routing_recorded(torch) as r32:
         k32 = _teacher_forced(torch, build_model(cfg32, device=DEVICE), params, tokens, fed)
@@ -2303,18 +2380,18 @@ def moe_serving_path(torch):
     with _routing_recorded(torch) as free32_routes:
         free32 = _teacher_forced(torch, torch32, params, tokens, fed)
     differ32, total32 = _routing_differences(r32, free32_routes, L)
-    free32_line = _end_to_end(k32, free32, "routing freely")
+    free32_line = _end_to_end(k32, free32, "routing freely", S)
     del free32
     with _routing_recorded(torch, pinned=r32):
         t32 = _teacher_forced(torch, torch32, params, tokens, fed)
     rel32 = {"prefill logits": _within(torch, k32["logits"][0], t32["logits"][0],
                                        "moe float32 prefill last-token logits")}
     for key in ("k", "v"):
-        rel32[f"{key} cache"] = _within(torch, k32["cache"][key][:, :, :MOE_SERVE_PROMPT],
-                                        t32["cache"][key][:, :, :MOE_SERVE_PROMPT],
+        rel32[f"{key} cache"] = _within(torch, k32["cache"][key][:, :, :S],
+                                        t32["cache"][key][:, :, :S],
                                         f"moe float32 prefill {key} cache")
     dec = [_within(torch, k32["logits"][t], t32["logits"][t],
-                   f"moe float32 decode step {t} logits") for t in range(1, MOE_SERVE_NEW)]
+                   f"moe float32 decode step {t} logits") for t in range(1, N)]
     rel32["decode logits"] = (max(e for e, _ in dec), max(u for _, u in dec))
     print(f"moe float32 end to end (CUDA-core kernel), kernel vs torch backend with the "
           f"kernel run's routing pinned: "
@@ -2322,9 +2399,6 @@ def moe_serving_path(torch):
           f" (max abs err / max|ref|, share of the allowance; tol {SERVE_TOL}); routing "
           f"freely {sum(differ32)} of {total32} (token, layer) choices differ (by layer "
           f"{differ32}), unchecked {free32_line}", flush=True)
-    del params, k32, t32, engine
-    torch.cuda.empty_cache()
-    return launched
 
 
 # --------------------------------------------------------------------------
@@ -2470,18 +2544,16 @@ def family_serving_path(torch, phase):
     tokens (:func:`_hybrid_teacher_forcing`: block by block in bf16, end
     to end in f32). Prints prefill tokens/s, decode ms a step and peak
     memory."""
-    import dataclasses
-    from repro_torch.configs.registry import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Engine, ServeConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     spec = FAMILY_SERVING[phase]
-    cfg = get_config(spec["arch"])
-    if "layers" in spec:
-        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    cfg = _serving_config(spec)
     B, S, N, flash = spec["batch"], spec["prompt"], spec["new"], spec["flash"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    print(f"{phase} {cfg.name}: {_cut_line(spec)}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated at the start", flush=True)
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
     params = model.init(SERVE_SEED)
@@ -4846,7 +4918,9 @@ def main(argv=None):
     phases.run("moe_serving", moe_serving_path, torch)
     family_launched = {phase: phases.run(phase, family_serving_path, torch, phase)
                        for phase in FAMILY_SERVING}
-    print("flash_attention launches of the family serving paths (counted apart): " +
+    family_launched["arctic_serving"] = phases.run("arctic_serving", moe_serving_path, torch,
+                                                   "arctic_serving")
+    print("flash_attention launches of the family and arctic serving paths (counted apart): " +
           ", ".join(f"{p} {n['flash_attention']}" for p, n in family_launched.items()),
           flush=True)
     dense_train = phases.run("train", train_path, torch)

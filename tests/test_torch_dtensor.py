@@ -23,10 +23,13 @@
   and the dense config's adamw step at (2, 2) in 2 microbatches, each
   rank splitting its own rows;
 * the xLSTM smoke config (2 heads) at (1, 4), a model axis that does not
-  divide its heads (each projection gathered before its head reshape,
-  ``xlstm._merge_heads``' backward gathering the cotangent): the sharded
-  logits and every gradient against the port's replicated run and the
-  reference's jitted forward and jax.grad at (1, 4);
+  divide its heads, its token loop and its chunked form (two chunks): the
+  mLSTM's h before the head merge and the returned C state sharded along
+  Dv on every rank (the recurrence split, ``xlstm._split_scan``), and the
+  sharded logits and every gradient against the port's replicated run and
+  the reference's jitted forward and jax.grad at (1, 4); one decode step
+  from the split state (as returned, whole as a placed cache, plain)
+  against the replicated model's;
 * on ``single_device_context``'s one-rank mesh, in this process, the
   sharded MoE forward equals the plain model's bit for bit and one
   ``adamw_q8`` step moves the parameters as on the plain model.
@@ -57,8 +60,9 @@ from test_torch_moe_ep import _env
 ARCHS = [a + "-smoke" for a in t_registry.ARCH_IDS]
 TRAIN = {"dense": "granite-3-2b-smoke", "moe": "granite-moe-1b-a400m-smoke"}
 TRAIN_MESHES = {"22": (2, 2), "14": (1, 4)}
-#: the xLSTM case: 2 heads on a model axis of 4
-XLSTM, XLSTM_MESH = "xlstm-350m-smoke", (1, 4)
+#: the xLSTM case: 2 heads on a model axis of 4; the chunked form
+#: (``xlstm-350m-smoke-fast``) at a chunk of XLSTM_CHUNK, two chunks of S
+XLSTM, XLSTM_MESH, XLSTM_CHUNK = "xlstm-350m-smoke", (1, 4), 8
 OPTIMIZERS = ("adamw", "adamw_q8")
 B, S = 4, 16
 # AdamW with a visible first step: no warmup, an eps above the gradients'
@@ -86,7 +90,7 @@ REFERENCE = textwrap.dedent("""
     out_dir = Path(sys.argv[1])
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[2:6])
     B, S = int(sys.argv[6]), int(sys.argv[7])
-    xl_arch, xl_mesh = sys.argv[8], json.loads(sys.argv[9])
+    xl_arch, xl_mesh, xl_chunk = sys.argv[8], json.loads(sys.argv[9]), int(sys.argv[10])
     MICROBATCHES = 2
 
     def flat(tree):
@@ -182,11 +186,15 @@ REFERENCE = textwrap.dedent("""
                 out[f"gnorm/{tag}"] = np.asarray(metrics["grad_norm"])
     cfg = cfg_of(xl_arch)
     ctx = ParallelContext(mesh=make_host_mesh(*xl_mesh))
-    model = build_model(cfg, ctx)
     p, b = put(ctx, params[xl_arch], batches[xl_arch])
-    out["xfwd"] = np.asarray(jax.jit(lambda p, b: fwd(cfg, ctx, p, b))(p, b))
-    for k, v in flat(jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(p, b)).items():
-        out[f"xgrad/{k}"] = v
+    # the token loop ("x") and the chunked form ("xf", two chunks)
+    fast = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+        cfg.xlstm, parallel_mlstm=True, chunk=xl_chunk))
+    for tag, c in (("x", cfg), ("xf", fast)):
+        model = build_model(c, ctx)
+        out[f"{tag}fwd"] = np.asarray(jax.jit(lambda p, b, c=c: fwd(c, ctx, p, b))(p, b))
+        for k, v in flat(jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(p, b)).items():
+            out[f"{tag}grad/{k}"] = v
     np.savez(out_dir / "reference.npz", **out)
 """)
 
@@ -200,7 +208,8 @@ PORT = textwrap.dedent("""
                             rank=rank, world_size=world)
     from repro_torch.configs.registry import get_config
     from repro_torch.models import build_model, encdec, transformer, xlstm, zamba
-    from repro_torch.models.model_zoo import batch_placements, params_from_numpy
+    from repro_torch.models.model_zoo import batch_placements, cache_placements, \
+        params_from_numpy
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.compat import make_mesh
     from repro_torch.parallel.sharding import ParallelContext, distribute, spmd
@@ -208,7 +217,7 @@ PORT = textwrap.dedent("""
         init_opt_state_q8
     in_dir, out_path = Path(sys.argv[4]), sys.argv[5]
     archs, train, meshes, opt_kw = (json.loads(a) for a in sys.argv[6:10])
-    xl_arch, xl_mesh = sys.argv[10], json.loads(sys.argv[11])
+    xl_arch, xl_mesh, xl_chunk = sys.argv[10], json.loads(sys.argv[11]), int(sys.argv[12])
     MICROBATCHES = 2
 
     def cfg_of(arch):
@@ -231,8 +240,8 @@ PORT = textwrap.dedent("""
             return encdec.forward(c, p, b["tokens"], b["frames"], ctx=ctx)[0]
         return transformer.forward(c, p, b["tokens"], ctx=ctx)[0]
 
-    def sharded(arch, ctx):
-        cfg = cfg_of(arch)
+    def sharded(arch, ctx, cfg=None):
+        cfg = cfg or cfg_of(arch)
         tree, batch = load(arch)
         model = build_model(cfg, ctx, device="cpu")
         params = model.shard(params_from_numpy(cfg, tree, "cpu"))
@@ -282,21 +291,57 @@ PORT = textwrap.dedent("""
                 out[f"loss/{tag}"] = metrics["loss"].numpy()
                 out[f"gnorm/{tag}"] = metrics["grad_norm"].numpy()
     ctx = ParallelContext(mesh=make_mesh(xl_mesh, ("data", "model")))
-    cfg, model, params, batch = sharded(xl_arch, ctx)
-    with torch.no_grad():
-        out["xfwd/sharded"] = fwd(cfg, ctx, params, batch).full_tensor().numpy()
-    names, leaves = zip(*params.named_parameters())
-    grads = spmd(lambda: torch.autograd.grad(model.loss(params, batch)[0], leaves))()
-    for n, g in zip(names, grads):
-        out[f"xgrad/sharded/{n}"] = g.full_tensor().numpy()
-    tree, batch = load(xl_arch)
-    model = build_model(cfg, None, device="cpu")
-    params = params_from_numpy(cfg, tree, "cpu")
-    with torch.no_grad():
-        out["xfwd/replicated"] = fwd(cfg, None, params, batch).numpy()
-    names, leaves = zip(*params.named_parameters())
-    for n, g in zip(names, torch.autograd.grad(model.loss(params, batch)[0], leaves)):
-        out[f"xgrad/replicated/{n}"] = g.numpy()
+    seen, merge = [], xlstm._merge_heads
+
+    def spy(h, heads, flat=None):       # h before the head merge
+        seen.append(h)
+        return merge(h, heads, flat)
+
+    def layout(t):                      # a DTensor's mesh, placements and shapes
+        return np.array(json.dumps({
+            "mesh": list(t.device_mesh.mesh_dim_names), "local": list(t.to_local().shape),
+            "shard": [p.dim if p.is_shard() else -1 for p in t.placements],
+            "global": list(t.shape)}))
+    xlstm._merge_heads = spy
+    cfg = cfg_of(xl_arch)
+    fast = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+        cfg.xlstm, parallel_mlstm=True, chunk=xl_chunk))
+    for tag, c in (("x", cfg), ("xf", fast)):
+        _, model, params, batch = sharded(xl_arch, ctx, c)
+        seen.clear()
+        with torch.no_grad():
+            logits, _, state = xlstm.xlstm_forward(c, params, batch["tokens"], ctx=ctx)
+        out[f"{tag}fwd/sharded"] = logits.full_tensor().numpy()
+        out[f"{tag}layout/h"], out[f"{tag}layout/C"] = layout(seen[0]), layout(state["mlstm"]["C"])
+        if tag == "x":
+            # one decode step from the split state, from that state whole and
+            # placed as a cache, and from it as plain tensors
+            whole = {b: {k: t.full_tensor() for k, t in d.items()} for b, d in state.items()}
+            step = batch["tokens"][:, :1]
+            with torch.no_grad():
+                for how, st in (("split", state),
+                                ("cache", distribute(whole, cache_placements(ctx, whole), ctx,
+                                                     "cpu")),
+                                ("plain", whole)):
+                    out[f"xdecode/{how}"] = xlstm.xlstm_decode_step(
+                        c, params, st, step, 0, ctx=ctx)[0].full_tensor().numpy()
+        names, leaves = zip(*params.named_parameters())
+        grads = spmd(lambda: torch.autograd.grad(model.loss(params, batch)[0], leaves))()
+        for n, g in zip(names, grads):
+            out[f"{tag}grad/sharded/{n}"] = g.full_tensor().numpy()
+        tree, batch = load(xl_arch)
+        model = build_model(c, None, device="cpu")
+        params = params_from_numpy(c, tree, "cpu")
+        with torch.no_grad():
+            out[f"{tag}fwd/replicated"] = fwd(c, None, params, batch).numpy()
+            if tag == "x":
+                _, _, state = xlstm.xlstm_forward(c, params, batch["tokens"])
+                out["xdecode/replicated"] = xlstm.xlstm_decode_step(
+                    c, params, state, batch["tokens"][:, :1], 0)[0].numpy()
+        names, leaves = zip(*params.named_parameters())
+        for n, g in zip(names, torch.autograd.grad(model.loss(params, batch)[0], leaves)):
+            out[f"{tag}grad/replicated/{n}"] = g.numpy()
+    xlstm._merge_heads = merge
     np.savez(out_path, **out)
     dist.destroy_process_group()
 """)
@@ -313,7 +358,7 @@ def runs(tmp_path_factory):
     starts once the reference has written the initial states."""
     tmp = tmp_path_factory.mktemp("dtensor")
     args = [json.dumps(ARCHS), json.dumps(TRAIN), json.dumps(TRAIN_MESHES), json.dumps(OPT)]
-    xl = [XLSTM, json.dumps(XLSTM_MESH)]
+    xl = [XLSTM, json.dumps(XLSTM_MESH), str(XLSTM_CHUNK)]
     ref = subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp), *args, str(B), str(S), *xl],
                            env=_env(JAX_PLATFORMS="cpu",
                                     XLA_FLAGS="--xla_force_host_platform_device_count=4"),
@@ -461,27 +506,77 @@ def test_microbatched_sharded_step_matches_reference(runs):
                    f"{tag} {name} rank {r}")
 
 
+def _xlstm_held(runs, tag):
+    """The xLSTM run ``tag`` ("x" the token loop, "xf" the chunked form):
+    on every rank the sharded logits and every parameter's gradient equal
+    the port's replicated run's and the reference's."""
+    ref, ranks, _ = runs
+    cfg = _cfg(XLSTM)
+    assert cfg.num_heads % XLSTM_MESH[1]          # the axis does not divide the heads
+    want = _port_names(cfg, ref, f"{tag}grad/")
+    for r, out in enumerate(ranks):
+        got, plain = out[f"{tag}fwd/sharded"], out[f"{tag}fwd/replicated"]
+        assert got.shape == ref[f"{tag}fwd"].shape and np.isfinite(got).all()
+        _close(got, plain, FWD_TOL, f"{tag} logits vs replicated, rank {r}")
+        _close(got, ref[f"{tag}fwd"], FWD_TOL, f"{tag} logits vs reference, rank {r}")
+        prefix = f"{tag}grad/sharded/"
+        assert {k[len(prefix):] for k in out if k.startswith(prefix)} == want.keys()
+        for name, w in want.items():
+            g = out[prefix + name]
+            _close(g, out[f"{tag}grad/replicated/{name}"], GRAD_TOL,
+                   f"{tag} {name} vs replicated, rank {r}")
+            _close(g, w, GRAD_TOL, f"{tag} {name} vs jax.grad, rank {r}")
+
+
 def test_xlstm_on_a_model_axis_that_does_not_divide_its_heads(runs):
     """The xLSTM smoke config's 2 heads on a model axis of 4: on every
     rank the sharded logits and every parameter's gradient equal the
     port's replicated run's (FWD_TOL / GRAD_TOL: DTensor sums the
     contractions in its own order) and the reference's jitted forward and
     jax.grad at the same mesh."""
-    ref, ranks, _ = runs
+    _xlstm_held(runs, "x")
+
+
+def test_chunked_xlstm_on_a_model_axis_that_does_not_divide_its_heads(runs):
+    """The chunked-parallel mLSTM (``xlstm-350m-smoke-fast``, two chunks
+    of XLSTM_CHUNK) on the same mesh, held as the token loop is."""
+    _xlstm_held(runs, "xf")
+
+
+@pytest.mark.parametrize("tag", ["x", "xf"])
+def test_xlstm_recurrence_is_split_along_dv(runs, tag):
+    """On every rank, in both forms (the token loop "x", the chunked form
+    "xf"), the mLSTM's h before the head merge (B, S, H, Dv) and the
+    returned C state (pairs, B, H, Dk, Dv) are sharded along Dv over the
+    model axis unflattened into (heads, Dv blocks), and not replicated:
+    each rank holds one head's share of the Dv columns, all ranks of the
+    model axis together every column once."""
+    _, ranks, _ = runs
     cfg = _cfg(XLSTM)
-    assert cfg.num_heads % XLSTM_MESH[1]          # the axis does not divide the heads
-    want = _port_names(cfg, ref, "xgrad/")
+    per = XLSTM_MESH[1] // cfg.num_heads          # ranks a head
     for r, out in enumerate(ranks):
-        got, plain = out["xfwd/sharded"], out["xfwd/replicated"]
-        assert got.shape == ref["xfwd"].shape and np.isfinite(got).all()
-        _close(got, plain, FWD_TOL, f"xlstm logits vs replicated, rank {r}")
-        _close(got, ref["xfwd"], FWD_TOL, f"xlstm logits vs reference, rank {r}")
-        assert {k[len("xgrad/sharded/"):] for k in out if k.startswith("xgrad/sharded/")} \
-            == want.keys()
-        for name, w in want.items():
-            g = out[f"xgrad/sharded/{name}"]
-            _close(g, out[f"xgrad/replicated/{name}"], GRAD_TOL, f"{name} vs replicated, rank {r}")
-            _close(g, w, GRAD_TOL, f"{name} vs jax.grad, rank {r}")
+        for what in ("h", "C"):
+            lay = json.loads(str(out[f"{tag}layout/{what}"]))
+            dv, heads = len(lay["global"]) - 1, len(lay["global"]) - 2 - (what == "C")
+            assert lay["mesh"] == ["data", "model_heads", "model_dv"], (what, r, lay)
+            assert lay["shard"][1:] == [heads, dv], (what, r, lay)
+            assert lay["local"][dv] * per == lay["global"][dv] and lay["local"][heads] == 1, \
+                (what, r, lay)
+
+
+def test_xlstm_decodes_from_a_split_state(runs):
+    """One decode step of the sharded token-loop model after its prefill,
+    from the split state it returned, from that state whole placed by
+    ``cache_placements`` and from it as plain tensors: each step's logits,
+    on every rank, equal the replicated model's step from its own state
+    within FWD_TOL."""
+    _, ranks, _ = runs
+    for r, out in enumerate(ranks):
+        want = out["xdecode/replicated"]
+        for how in ("split", "cache", "plain"):
+            got = out[f"xdecode/{how}"]
+            assert got.shape == want.shape and np.isfinite(got).all()
+            _close(got, want, FWD_TOL, f"decode from the {how} state, rank {r}")
 
 
 def test_one_rank_sharded_run_is_the_plain_model():

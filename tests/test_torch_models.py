@@ -16,6 +16,8 @@ the flash-attention wrapper (its plain version on these CPU tensors); with
 """
 import dataclasses
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -505,41 +507,88 @@ def test_engine_greedy_tokens_equal_reference(arch, backend):
     assert stats == jstats
 
 
-@functools.lru_cache(maxsize=None)
-def _gemma_layout(dtype):
-    """gemma-2b's own attention layout (d_model 2,048, Hq 8, Hkv 1, D 256,
-    GeGLU, tied and scaled embeddings) at 2 layers, d_ff and vocab cut to
-    256 and 512: the head dim the tensor-core kernel takes at 256, which
-    the smoke config's D 16 never reaches."""
-    cut = dict(num_layers=2, d_ff=256, vocab_size=512, dtype=dtype)
-    jc = dataclasses.replace(j_get_config("gemma-2b"), **cut)
-    tc = dataclasses.replace(get_config("gemma-2b"), **cut)
-    params = JT.init_lm(jax.random.PRNGKey(4), jc)
+#: configs held at their own attention layouts: gemma-2b's MQA at D 256,
+#: yi-9b's G 8, internlm2-20b's G 6 and arctic-480b's G 7 at D 128
+LAYOUT_ARCHS = ("gemma-2b", "yi-9b", "internlm2-20b", "arctic-480b")
+
+
+@functools.lru_cache(maxsize=1)
+def _layout_params(arch):
+    """``arch`` at its own d_model, Hq, Hkv and D at 2 layers (arctic 1),
+    d_ff and vocab cut to 256 and 512; arctic keeps its 128 experts top-2,
+    its expert and dense-residual d_ff cut to 16: layouts the smoke
+    configs (4 query heads, 2 kv heads, D 16) never reach. One arch's
+    params held at a time (the cases run arch by arch)."""
+    cut = dict(num_layers=2, d_ff=256, vocab_size=512, dtype="float32")
+    jc, tc = j_get_config(arch), get_config(arch)
+    if tc.moe is not None:
+        cut.update(num_layers=1, d_ff=16)
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe, d_ff=16, dense_d_ff=16))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, d_ff=16, dense_d_ff=16))
+    jc, tc = dataclasses.replace(jc, **cut), dataclasses.replace(tc, **cut)
+    # jitted: the same draws as init_lm's, in half the time at these widths
+    params = jax.jit(JT.init_lm, static_argnums=1)(jax.random.PRNGKey(4), jc)
     return jc, tc, params, params_from_numpy(tc, jax.tree.map(np.asarray, params), "cpu")
 
 
-@pytest.mark.parametrize("backend", ["cuda", "torch"])
-def test_gemma_layout_engine_and_prefill_match_reference(backend):
-    """At gemma-2b's attention layout: Engine.generate's greedy tokens equal
-    the reference's in float32, and the prefill's last logits agree in
-    float32 (F32) and in bfloat16, the config's compute type (BF16), under
-    both kernel backends (``"cuda"`` runs the flash wrapper's plain version
-    on these CPU tensors)."""
-    jc, tc, params, lm = _gemma_layout("float32")
-    assert (tc.num_heads, tc.num_kv_heads, tc.head_dim, tc.d_model) == (8, 1, 256, 2048)
+def _layout(arch, dtype):
+    """:func:`_layout_params` with compute type ``dtype`` (the params stay
+    float32, as the configs'): (JAX config, port config, JAX params, port
+    params)."""
+    jc, tc, params, lm = _layout_params(arch)
+    return (dataclasses.replace(jc, dtype=dtype), dataclasses.replace(tc, dtype=dtype),
+            params, lm)
+
+
+@functools.lru_cache(maxsize=1)
+def _layout_reference(arch):
+    """The reference's Engine.generate tokens and stats (float32) and its
+    prefill's last logits in float32 and bfloat16, on 2 x 19 tokens."""
+    jc, tc, params, _ = _layout(arch, "float32")
     jt, tt = _tokens(tc, 2, 19, seed=5)
     want, jstats = JEngine(j_build_model(jc, None), params,
                            JServeConfig(max_new_tokens=6)).generate({"tokens": jt})
+    logits = {dt: np.asarray(JT.prefill(_layout(arch, dt)[0], None, params, jt)[0], np.float32)
+              for dt in ("float32", "bfloat16")}
+    return tt, np.asarray(want), jstats, logits
+
+
+@pytest.mark.parametrize("arch,backend", [
+    pytest.param(a, b, id=b if a == "gemma-2b" else f"{a}-{b}")
+    for a in LAYOUT_ARCHS for b in ("cuda", "torch")])
+def test_gemma_layout_engine_and_prefill_match_reference(arch, backend):
+    """At each config's own attention layout (:func:`_layout_params`):
+    Engine.generate's greedy tokens equal the reference's in float32, and
+    the prefill's last logits agree in float32 (F32) and in bfloat16, the
+    configs' compute type (BF16), under both kernel backends (``"cuda"``
+    runs the flash wrapper's plain version on these CPU tensors)."""
+    jc, tc, params, lm = _layout(arch, "float32")
+    full = get_config(arch)
+    assert (tc.num_heads, tc.num_kv_heads, tc.head_dim, tc.d_model) == \
+        (full.num_heads, full.num_kv_heads, full.head_dim, full.d_model)
+    if full.moe is not None:
+        assert (tc.moe.num_experts, tc.moe.top_k) == (full.moe.num_experts, full.moe.top_k)
+    tt, want, jstats, logits = _layout_reference(arch)
     model = build_model(tc, device="cpu", kernel_backend=backend)
     got, stats = Engine(model, lm, ServeConfig(max_new_tokens=6)).generate({"tokens": tt})
-    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, want)
     assert stats == jstats
     for dtype in ("float32", "bfloat16"):
-        jc, tc, params, lm = _gemma_layout(dtype)
-        jl, _ = JT.prefill(jc, None, params, jt)
-        tl, _ = build_model(tc, device="cpu", kernel_backend=backend).prefill(
-            lm, {"tokens": tt})
-        _close(tl, jl, **_tol(dtype))
+        tl, _ = build_model(_layout(arch, dtype)[1], device="cpu", kernel_backend=backend
+                            ).prefill(lm, {"tokens": tt})
+        _close(tl, logits[dtype], **_tol(dtype))
+
+
+def test_chip_smoke_serves_every_config():
+    """chip_smoke.py's serving phases (``serving``, the MoE phases of
+    MOE_SERVING and the family phases of FAMILY_SERVING) serve each of the
+    ten configs once, and nothing else."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    served = [chip_smoke.SERVE_ARCH]
+    served += [s["arch"] for s in chip_smoke.MOE_SERVING.values()]
+    served += [s["arch"] for s in chip_smoke.FAMILY_SERVING.values()]
+    assert sorted(served) == sorted(ARCH_IDS)
 
 
 def test_engine_temperature_sampling_is_seeded():
